@@ -1,0 +1,136 @@
+"""Command line of the port: argv is a left-to-right pipeline of
+commands on one current PBWT, as ``pbwt_tpu/cli.py`` (pbwtMain.c:276-494),
+for the commands this port serves. I/O is pbwt_tpu's host code; the match
+commands take the device routes of :mod:`pbwt_tpu_torch.algos.match`."""
+
+from __future__ import annotations
+
+import os
+import sys
+
+HELP = """Program: pbwt (PyTorch/CUDA port)
+Usage: python -m pbwt_tpu_torch [ -<command> [options]* ]+
+Commands:
+  -log <file>               log file; '-' for stderr
+  -check                    do various checks
+  -stats                    print stats depending on commands; writes to stdout
+  -read <file>              read pbwt file; '-' for stdin
+  -readAll <rootname>       read .pbwt and if present .sites, .samples, .missing
+  -readVcfGT <file>         read GTs from vcf or bcf file; '-' for stdin
+  -write <file>             write pbwt file; '-' for stdout
+  -writeAll <rootname>      write .pbwt and present sidecars
+  -haps <file>              write haplotype file; '-' for stdout
+  -matchIndexed <file>      maximal match seqs in pbwt file to reference
+  -matchDynamic <file>      maximal match seqs in pbwt file to reference
+Every other command of pbwt is served by: python -m pbwt_tpu
+"""
+
+# the commands of this port and the arguments each takes
+_NARGS = {"-check": 0, "-stats": 0, "-log": 1, "-read": 1, "-readAll": 1,
+          "-readVcfGT": 1, "-write": 1, "-writeAll": 1, "-haps": 1,
+          "-matchIndexed": 1, "-matchDynamic": 1}
+
+
+def _open(name: str, mode: str):
+    if name == "-":
+        if "r" in mode:
+            return sys.stdin.buffer if "b" in mode else sys.stdin
+        return sys.stdout.buffer if "b" in mode else sys.stdout
+    return open(name, mode)
+
+
+def _close(fp, name: str) -> None:
+    if name != "-":
+        fp.close()
+    else:
+        fp.flush()
+
+
+def main(argv: list[str] | None = None) -> int:
+    """die()-style wrapper: clean one-line fatal errors like the reference."""
+    # pbwt_tpu's host code asks its own device_requested(), which would import
+    # jax; this process routes devices itself
+    os.environ["PBWT_TPU_DEVICE"] = "0"
+    try:
+        return _main(argv)
+    except BrokenPipeError:
+        return 0
+    except FileNotFoundError as e:
+        sys.stderr.write(f"pbwt: failed to open file {e.filename}\n")
+        return 1
+    except ValueError as e:
+        sys.stderr.write(f"pbwt: {e}\n")
+        return 1
+    except AttributeError as e:
+        if "'NoneType'" in str(e):
+            sys.stderr.write("pbwt: command requires a current PBWT - "
+                             "read one first\n")
+            return 1
+        raise
+
+
+def _main(argv: list[str] | None) -> int:
+    from .algos import match
+    from .host import pbwtfile, registry, textformats, utils, vcf
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    registry.init()
+    registry.command_line = " ".join(argv)
+    utils.set_log_file(sys.stderr)
+    if not argv:
+        sys.stderr.write(HELP)
+        return 0
+    p = None
+    utils.time_update()
+    while argv:
+        cmd = argv[0]
+        if not cmd.startswith("-"):
+            raise SystemExit(f"not well formed command {cmd}\n"
+                             "Type pbwt without arguments for help")
+        if cmd not in _NARGS:
+            raise SystemExit(f"pbwt_tpu_torch: command {cmd} is not in the "
+                             "port; run it with python -m pbwt_tpu")
+        nargs = _NARGS[cmd]
+        if len(argv) <= nargs:
+            raise SystemExit(f"option {cmd} requires {nargs} argument(s)")
+        arg = argv[1] if nargs else None
+        if cmd == "-check":
+            registry.is_check = True
+        elif cmd == "-stats":
+            registry.is_stats = True
+        elif cmd == "-log":
+            utils.set_log_file(sys.stderr if arg == "-" else open(arg, "w"))
+        elif cmd == "-read":
+            fp = _open(arg, "rb")
+            p = pbwtfile.read_pbwt(fp)
+            _close(fp, arg)
+        elif cmd == "-readAll":
+            p = pbwtfile.read_all(arg)
+        elif cmd == "-readVcfGT":
+            p = vcf.read_vcf_gt(arg)
+        elif cmd == "-write":
+            fp = _open(arg, "wb")
+            pbwtfile.write_pbwt(p, fp)
+            _close(fp, arg)
+        elif cmd == "-writeAll":
+            pbwtfile.write_all(p, arg)
+        elif cmd == "-haps":
+            fp = _open(arg, "w")
+            textformats.write_haplotypes(fp, p)
+            _close(fp, arg)
+        elif cmd == "-matchIndexed":
+            fp = _open(arg, "rb")
+            q = pbwtfile.read_pbwt(fp)
+            _close(fp, arg)
+            match.match_sequences_indexed(p, q)
+        else:                                   # -matchDynamic
+            fp = _open(arg, "rb")
+            match.match_sequences_dynamic(p, fp)
+            _close(fp, arg)
+        argv = argv[1 + nargs:]
+        utils.time_update()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

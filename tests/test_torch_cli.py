@@ -1,0 +1,142 @@
+"""The port's CLI end to end in a subprocess, on the CPU with the device
+route forced (plain twins): stdout byte-identical to the JAX package's CLI
+on its host engine, and no jax imported. A subprocess, because this test
+process imports jax (tests/conftest.py)."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from pbwt_tpu.core.pbwt import PBWT
+from pbwt_tpu.io import pbwtfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# runs the port as `python -m pbwt_tpu_torch ARGS`, then checks for jax
+RUN_PORT = """
+import runpy, sys
+sys.argv = ["pbwt_tpu_torch"] + sys.argv[1:]
+try:
+    runpy.run_module("pbwt_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    rc = e.code
+sys.stdout.flush()
+if "jax" in sys.modules:
+    sys.exit("jax was imported")
+sys.exit(rc)
+"""
+
+
+def _panel(seed, M, N, founders=6, switch=0.05):
+    rng = np.random.RandomState(seed)
+    F = (rng.random_sample((founders, N)) < 0.4).astype(np.uint8)
+    src = rng.randint(founders, size=M)
+    X = np.empty((M, N), np.uint8)
+    for k in range(N):
+        sw = rng.random_sample(M) < switch
+        src[sw] = rng.randint(founders, size=int(sw.sum()))
+        X[:, k] = F[src, k]
+    return X
+
+
+def _queries(Xp, Q, seed):
+    r = np.random.RandomState(seed)
+    Xq = np.empty((Q, Xp.shape[1]), np.uint8)
+    for q in range(Q):
+        pos = 0
+        while pos < Xp.shape[1]:
+            seg = r.randint(8, 30)
+            Xq[q, pos:pos + seg] = Xp[r.randint(Xp.shape[0]), pos:pos + seg]
+            pos += seg
+    return Xq
+
+
+def _write(path, X):
+    with open(path, "wb") as fp:
+        pbwtfile.write_pbwt(PBWT.from_haplotypes(X), fp)
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    d = tmp_path_factory.mktemp("cli")
+    Xp = _panel(3, 600, 80)               # M > 512: the device route
+    Xp[17] = Xp[400]
+    _write(d / "p.pbwt", Xp)
+    _write(d / "q.pbwt", _queries(Xp, 12, 4))
+    return str(d / "p.pbwt"), str(d / "q.pbwt")
+
+
+def _run(argv, env_extra, cwd=ROOT):
+    env = dict(os.environ, **env_extra)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.run(argv, capture_output=True, env=env, cwd=cwd,
+                          timeout=300)
+
+
+def _write_vcf(path, X):
+    """Phased diploid GT records of haplotype pairs (2i, 2i+1)."""
+    n_s, N = X.shape[0] // 2, X.shape[1]
+    with open(path, "w") as f:
+        f.write("##fileformat=VCFv4.2\n##contig=<ID=20>\n"
+                "##FORMAT=<ID=GT,Number=1,Type=String,Description=\"GT\">\n"
+                "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+                + "\t".join(f"s{i}" for i in range(n_s)) + "\n")
+        for k in range(N):
+            gts = "\t".join(f"{X[2 * i, k]}|{X[2 * i + 1, k]}"
+                            for i in range(n_s))
+            f.write(f"20\t{1000 + 10 * k}\t.\tA\tG\t.\tPASS\t.\tGT\t{gts}\n")
+
+
+@pytest.mark.parametrize("cmd", ["-matchDynamic", "-matchIndexed"])
+def test_cli_match_equals_host(files, cmd):
+    p, q = files
+    args = ["-read", p, cmd, q]
+    port = _run([sys.executable, "-c", RUN_PORT, *args],
+                {"PBWT_TORCH_DEVICE": "1", "CUDA_VISIBLE_DEVICES": "",
+                 "OMP_NUM_THREADS": "1"})
+    assert port.returncode == 0, port.stderr.decode()
+    ref = _run([sys.executable, "-m", "pbwt_tpu", *args],
+               {"PBWT_TPU_DEVICE": "0"})
+    assert ref.returncode == 0, ref.stderr.decode()
+    assert port.stdout.count(b"\n") > 12
+    assert port.stdout == ref.stdout
+
+
+def test_cli_refuses_other_commands(files):
+    p, _ = files
+    res = _run([sys.executable, "-c", RUN_PORT, "-read", p, "-maxWithin"],
+               {})
+    assert res.returncode != 0
+    last = res.stderr.decode().strip().splitlines()[-1]
+    assert "-maxWithin" in last and "python -m pbwt_tpu" in last
+
+
+def test_cli_io_commands_equal_host(tmp_path):
+    """The port's I/O commands write the same files and stdout as the JAX
+    package's CLI."""
+    _write_vcf(tmp_path / "x.vcf", _panel(5, 600, 40))
+    pipelines = [["-readVcfGT", "../x.vcf", "-check", "-stats", "-log",
+                  "l.txt", "-write", "o.pbwt", "-writeAll", "r", "-haps",
+                  "h.txt"],
+                 ["-readAll", "r", "-write", "o2.pbwt", "-haps", "-"]]
+    outs = {}
+    for side, argv0, env in (
+            ("port", [sys.executable, "-c", RUN_PORT],
+             {"PBWT_TORCH_DEVICE": "1", "OMP_NUM_THREADS": "1"}),
+            ("host", [sys.executable, "-m", "pbwt_tpu"],
+             {"PBWT_TPU_DEVICE": "0"})):
+        d = tmp_path / side
+        d.mkdir()
+        stdout = []
+        for args in pipelines:
+            res = _run([*argv0, *args], env, cwd=d)
+            assert res.returncode == 0, res.stderr.decode()
+            stdout.append(res.stdout)
+        outs[side] = stdout, {f: (d / f).read_bytes()
+                              for f in sorted(os.listdir(d)) if f != "l.txt"}
+    assert outs["port"][1].keys() == {"o.pbwt", "o2.pbwt", "r.pbwt",
+                                      "r.samples", "r.sites", "h.txt"}
+    assert outs["port"] == outs["host"]
