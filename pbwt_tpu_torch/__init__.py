@@ -8,7 +8,7 @@ every TPU kernel on its path is a CUDA kernel written for Hopper
 
 Layers:
   CLI           pbwt_tpu_torch.cli (python -m pbwt_tpu_torch)
-  algorithms    pbwt_tpu_torch.algos.match
-  device ops    pbwt_tpu_torch.ops.{build,match,partition,convert}
+  algorithms    pbwt_tpu_torch.algos.{match,likelihood}
+  device ops    pbwt_tpu_torch.ops.{build,match,partition,likelihood,convert}
   kernels       pbwt_tpu_torch.ops.kernels + csrc/*.cu
 """

@@ -1,7 +1,8 @@
 """Command line of the port: argv is a left-to-right pipeline of
 commands on one current PBWT, as ``pbwt_tpu/cli.py`` (pbwtMain.c:276-494),
 for the commands this port serves. I/O is pbwt_tpu's host code; the match
-commands take the device routes of :mod:`pbwt_tpu_torch.algos.match`."""
+commands take the device routes of :mod:`pbwt_tpu_torch.algos.match`, and
+-llCopyModel that of :mod:`pbwt_tpu_torch.algos.likelihood`."""
 
 from __future__ import annotations
 
@@ -22,13 +23,16 @@ Commands:
   -haps <file>              write haplotype file; '-' for stdout
   -matchIndexed <file>      maximal match seqs in pbwt file to reference
   -matchDynamic <file>      maximal match seqs in pbwt file to reference
+  -fitAlphaBeta <model>     fit probabilistic model 1..3
+  -llCopyModel <theta> <rho> log likelihood of Li-Stephens model
 Every other command of pbwt is served by: python -m pbwt_tpu
 """
 
 # the commands of this port and the arguments each takes
 _NARGS = {"-check": 0, "-stats": 0, "-log": 1, "-read": 1, "-readAll": 1,
           "-readVcfGT": 1, "-write": 1, "-writeAll": 1, "-haps": 1,
-          "-matchIndexed": 1, "-matchDynamic": 1}
+          "-matchIndexed": 1, "-matchDynamic": 1, "-fitAlphaBeta": 1,
+          "-llCopyModel": 2}
 
 
 def _open(name: str, mode: str):
@@ -70,7 +74,7 @@ def main(argv: list[str] | None = None) -> int:
 
 
 def _main(argv: list[str] | None) -> int:
-    from .algos import match
+    from .algos import likelihood, match
     from .host import pbwtfile, registry, textformats, utils, vcf
 
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -123,6 +127,11 @@ def _main(argv: list[str] | None) -> int:
             q = pbwtfile.read_pbwt(fp)
             _close(fp, arg)
             match.match_sequences_indexed(p, q)
+        elif cmd == "-fitAlphaBeta":
+            likelihood.fit_alpha_beta(p, int(arg))
+        elif cmd == "-llCopyModel":
+            likelihood.log_likelihood_copy_model(p, float(arg),
+                                                 float(argv[2]))
         else:                                   # -matchDynamic
             fp = _open(arg, "rb")
             match.match_sequences_dynamic(p, fp)

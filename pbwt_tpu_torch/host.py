@@ -8,10 +8,11 @@ is set, which the port's CLI does for its own process.
 """
 
 from pbwt_tpu import utils
+from pbwt_tpu.algos import likelihood as host_likelihood
 from pbwt_tpu.algos import match as host_match
 from pbwt_tpu.core import engine, native, pack3, registry
 from pbwt_tpu.core.pbwt import PBWT
 from pbwt_tpu.io import pbwtfile, textformats, vcf
 
-__all__ = ["PBWT", "engine", "host_match", "native", "pack3", "pbwtfile",
-           "registry", "textformats", "utils", "vcf"]
+__all__ = ["PBWT", "engine", "host_likelihood", "host_match", "native",
+           "pack3", "pbwtfile", "registry", "textformats", "utils", "vcf"]

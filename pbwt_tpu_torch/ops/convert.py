@@ -38,6 +38,14 @@ def digit_planes_to_int(planes: np.ndarray) -> np.ndarray:
     return v.reshape(v.shape[:-2] + (-1,))
 
 
+def ls_state_from_jax(left_p: np.ndarray, invrs_p: np.ndarray, M: int):
+    """The copy-model carry of ``pbwt_tpu.ops.likelihood_jax`` (a padded
+    (Mp, Mp) un-normalised left and an (Mp, 1) invrs) -> the port's (M, M)
+    left and (M,) invrs, f32."""
+    left = np.ascontiguousarray(np.asarray(left_p)[:M, :M], np.float32)
+    return left, np.ascontiguousarray(np.asarray(invrs_p)[:M, 0], np.float32)
+
+
 def trajectory_from_jax(a_end, A_pre, D8, U8, C):
     """Outputs of ``pbwt_tpu.ops.match_jax.panel_trajectory`` -> the port's
     (A (Ns+1, Mp), D (Ns, Mp), U (Ns, Mp), C (Ns,)) int32 tables."""

@@ -1,7 +1,8 @@
 """Build and binding of the port's hand-written CUDA kernels.
 
 The sources are ``pbwt_tpu_torch/csrc/*.cu``, each with a plain C interface.
-At first use they are compiled with ``nvcc`` for ``sm_90a`` into one shared
+At first use they are compiled with ``nvcc`` for ``sm_90a``, one compiler
+process for each source, all started together, linked into one shared
 library under ``build/pbwt_tpu_torch/`` beside the package and loaded with
 ``ctypes``; nothing is compiled or loaded when the module is imported, so
 the CPU tests import every module of the port without a toolchain.
@@ -28,9 +29,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pbwt_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libpbwt_torch_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "k1_group_partition": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                            _P],
@@ -38,6 +39,7 @@ _SIGNATURES = {
                              _P, _P, _P],
     "k3_match_scan": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                       _P, _I, _P, _P],
+    "k4_ls_step": [_I, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P],
 }
 
 # kernel name -> number of wrapper calls that launched it
@@ -78,13 +80,36 @@ def build(force: bool = False) -> str:
                                                       srcs))):
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError("pbwt_tpu_torch: kernel build failed:\n"
-                           + " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    os.replace(tmp, LIB_PATH)
+    cc, tag = nvcc(), f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
+            for s in srcs]
+    cmds = [[cc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        outs = [p.communicate()[0] for p in procs]
+        failed = [(c, out) for c, p, out in zip(cmds, procs, outs)
+                  if p.returncode != 0]
+        tmp = f"{LIB_PATH}.{tag}"
+        if not failed:
+            link = [cc, "-shared", "-o", tmp, *objs]
+            res = subprocess.run(link, capture_output=True, text=True)
+            if res.returncode != 0:
+                failed = [(link, res.stdout + res.stderr)]
+        if failed:
+            raise RuntimeError("pbwt_tpu_torch: kernel build failed:\n" +
+                               "\n".join(" ".join(c) + "\n" + out
+                                         for c, out in failed))
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     return LIB_PATH
 
 
@@ -123,15 +148,22 @@ def launch(name: str, *args) -> None:
                            f"{err}")
 
 
-def cuda_tensors(*ts: torch.Tensor) -> torch.device:
-    """Check that every tensor is a contiguous int32 CUDA tensor on one
-    device; returns that device."""
-    dev = ts[0].device
-    for t in ts:
-        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+def typed_cuda_tensors(*pairs: tuple[torch.Tensor, torch.dtype]
+                       ) -> torch.device:
+    """Check that each (tensor, dtype) pair is a contiguous CUDA tensor of
+    that dtype, all on one device; returns that device."""
+    dev = pairs[0][0].device
+    for t, dtype in pairs:
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
             raise ValueError("pbwt_tpu_torch: kernel arguments must be "
-                             "contiguous int32 tensors on one CUDA device, "
-                             f"got {t.dtype} on {t.device}")
+                             "contiguous tensors on one CUDA device, wanted "
+                             f"{dtype}, got {t.dtype} on {t.device}")
     if dev.type != "cuda":
         raise ValueError(f"pbwt_tpu_torch: no kernel for device {dev}")
     return dev
+
+
+def cuda_tensors(*ts: torch.Tensor) -> torch.device:
+    """Check that every tensor is a contiguous int32 CUDA tensor on one
+    device; returns that device."""
+    return typed_cuda_tensors(*((t, torch.int32) for t in ts))

@@ -1,9 +1,11 @@
 """The port's CLI end to end in a subprocess, on the CPU with the device
-route forced (plain twins): stdout byte-identical to the JAX package's CLI
-on its host engine, and no jax imported. A subprocess, because this test
-process imports jax (tests/conftest.py)."""
+route forced (plain twins) or left to its default: stdout byte-identical to
+the JAX package's CLI on its host engine (f32-close for the copy model's
+device route), and no jax imported. A subprocess, because this test process
+imports jax (tests/conftest.py)."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -70,7 +72,9 @@ def files(tmp_path_factory):
 
 
 def _run(argv, env_extra, cwd=ROOT):
-    env = dict(os.environ, **env_extra)
+    """argv in a subprocess with PBWT_TORCH_DEVICE unset unless given."""
+    env = {k: v for k, v in os.environ.items() if k != "PBWT_TORCH_DEVICE"}
+    env.update(env_extra)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     return subprocess.run(argv, capture_output=True, env=env, cwd=cwd,
                           timeout=300)
@@ -112,6 +116,64 @@ def test_cli_refuses_other_commands(files):
     assert res.returncode != 0
     last = res.stderr.decode().strip().splitlines()[-1]
     assert "-maxWithin" in last and "python -m pbwt_tpu" in last
+
+
+@pytest.fixture(scope="module")
+def ll_panel(tmp_path_factory):
+    """A mosaic panel with 1% allele noise: without noise theta runs to 0
+    and the -llCopyModel fit takes about four times the evaluations."""
+    X = _panel(11, 40, 30)
+    X ^= (np.random.RandomState(12).random_sample(X.shape) < 0.01
+          ).astype(np.uint8)
+    path = tmp_path_factory.mktemp("ll") / "p.pbwt"
+    _write(path, X)
+    return str(path)
+
+
+def _port_and_host(args, port_env):
+    """stdout of the port's CLI (with port_env) and of the host CLI."""
+    port = _run([sys.executable, "-c", RUN_PORT, *args],
+                dict(port_env, OMP_NUM_THREADS="1"))
+    host = _run([sys.executable, "-m", "pbwt_tpu", *args],
+                {"PBWT_TPU_DEVICE": "0"})
+    for res in (port, host):
+        assert res.returncode == 0, res.stderr.decode()
+    return port.stdout.decode(), host.stdout.decode()
+
+
+@pytest.mark.parametrize("args", [["-fitAlphaBeta", "1"],
+                                  ["-fitAlphaBeta", "2"],
+                                  ["-llCopyModel", "0.05", "0.01"]])
+def test_cli_likelihood_equals_host(ll_panel, args):
+    """-fitAlphaBeta is the host's code, and -llCopyModel stays on the host
+    unless PBWT_TORCH_DEVICE is set: stdout byte-identical."""
+    port, host = _port_and_host(["-read", ll_panel, *args], {})
+    assert port.count("\n") >= 2
+    assert port == host
+
+
+NUMBER = re.compile(r"-?\d+\.\d+")
+
+
+def test_cli_llcopymodel_device_route(ll_panel):
+    """PBWT_TORCH_DEVICE=1 without a card: the fit runs on K4's twin. The
+    text equals the host's outside the numbers; LLs agree to 1e-5
+    relative; the fitted theta and rho to 1% (the line search's bracket
+    tolerance is 1.001, and f32 noise can move its last choice)."""
+    port, host = _port_and_host(["-read", ll_panel, "-llCopyModel", "0.05",
+                                 "0.01"],
+                                {"PBWT_TORCH_DEVICE": "1",
+                                 "CUDA_VISIBLE_DEVICES": ""})
+    assert port != host
+    assert NUMBER.sub("#", port) == NUMBER.sub("#", host)
+    first, fit = ([float(v) for v in NUMBER.findall(line)]
+                  for line in port.splitlines())
+    first_h, fit_h = ([float(v) for v in NUMBER.findall(line)]
+                      for line in host.splitlines())
+    assert first[:2] == first_h[:2] == [0.05, 0.01]
+    np.testing.assert_allclose(first[2:], first_h[2:], rtol=1e-5)
+    np.testing.assert_allclose(fit[:2], fit_h[:2], rtol=1e-2)
+    np.testing.assert_allclose(fit[2:], fit_h[2:], rtol=1e-5)
 
 
 def test_cli_io_commands_equal_host(tmp_path):
