@@ -1,11 +1,15 @@
-"""Query-vs-panel matching: the device routes of -matchIndexed and
--matchDynamic on the port's DeviceMatcher.
+"""Query-vs-panel matching: -matchIndexed and -matchDynamic, on the host
+and on the port's DeviceMatcher (pbwtMatch.c).
 
-Counterpart of the device branches of ``pbwt_tpu/algos/match.py``
-(:354-401 and :499-559). Rows come back in the matcher's (site, query)
-order and are re-sorted into each command's report order, so stdout is
-byte-identical to the host paths, to which every other case delegates.
-"""
+Counterpart of the query-vs-panel half of ``pbwt_tpu/algos/match.py``. The
+host paths are the numpy and C ones; the device routes take their place
+when :func:`pbwt_tpu_torch.ops.device_requested` says so and the panel has
+more than DEVICE_MIN_M haplotypes. Device rows come back in the matcher's
+(site, query) order and are re-sorted into each command's report order, so
+stdout is byte-identical to the host paths.
+
+Report rows are printed as "MATCH\\tai\\tbi\\tstart\\tend\\tlen" exactly as
+reportMatch (pbwtMatch.c:46-58)."""
 
 from __future__ import annotations
 
@@ -13,26 +17,38 @@ import sys
 
 import numpy as np
 
-from ..host import PBWT, engine, host_match, native, pbwtfile, utils
+from ..core import engine, native
+from ..core.pbwt import PBWT
+from ..io import pbwtfile
 from ..ops import device_requested
-from ..ops.match import DeviceMatcher
+from ..utils import log
 
-report_match_stdout = host_match.report_match_stdout
-
-# panels this small stay on the host, as in the JAX package
+# panels this small stay on the host
 DEVICE_MIN_M = 512
+
+
+def report_match_stdout(ai: int, bi: int, start: int, end: int) -> None:
+    if start == end:
+        return
+    sys.stdout.write(f"MATCH\t{ai}\t{bi}\t{start}\t{end}\t{end - start}\n")
 
 
 def _use_device(p: PBWT) -> bool:
     return device_requested() and p.M > DEVICE_MIN_M
 
 
-def _matcher(p: PBWT, device) -> DeviceMatcher:
+def _matcher(p: PBWT, device):
+    """The standing-panel matcher of p: the pack3 panel streams into it
+    (O(M * chunk) host bytes) rather than through the dense haplotype
+    matrix."""
+    from ..ops.match import DeviceMatcher
     return (DeviceMatcher.from_pbwt(p, device=device) if p.yz
             else DeviceMatcher(p.haplotypes(), device=device))
 
 
 def _report_rows(rows: np.ndarray, report) -> None:
+    """Report (n, 4) rows: formatted in C straight to stdout's buffer when
+    the report is the stdout one, else row by row."""
     binout = getattr(sys.stdout, "buffer", None)
     if report is report_match_stdout and binout is not None:
         sys.stdout.flush()
@@ -45,51 +61,256 @@ def _report_rows(rows: np.ndarray, report) -> None:
 
 def match_sequences_indexed(p: PBWT, q: PBWT, report=report_match_stdout,
                             device=None) -> None:
-    """-matchIndexed (matchSequencesIndexed, pbwtMatch.c:255-340): every
-    set-maximal match of each query, reported by (query, end site)."""
+    """Algorithm 5 with materialised a/d/u indexes (matchSequencesIndexed,
+    pbwtMatch.c:255-340).  O(N(M+Q)) time, ~13NM bytes memory.
+
+    On the device route the state evolution runs on the DeviceMatcher;
+    reports are re-sorted into this function's (query, end site) order, so
+    output is identical."""
     if q.N != p.N:
         raise ValueError(f"query length {q.N} != PBWT length {p.N}")
-    if not _use_device(p):
-        host_match.match_sequences_indexed(p, q, report)
+    if _use_device(p):
+        rows = _matcher(p, device).match(q.haplotypes())
+        rows = rows[np.lexsort((np.arange(len(rows)), rows[:, 3],
+                                rows[:, 0]))]
+        events = np.unique(rows[:, [0, 2, 3]], axis=0)
+        _report_rows(rows, report)
+        n_tot = max(len(events), 1)
+        tot_len = int((events[:, 2].astype(np.int64) - events[:, 1]).sum())
+        log(f"Average number of best matches {n_tot / q.M:.1f}, "
+            f"Average length {tot_len / n_tot:.1f}")
         return
-    rows = _matcher(p, device).match(q.haplotypes())
-    rows = rows[np.lexsort((np.arange(len(rows)), rows[:, 3], rows[:, 0]))]
-    events = np.unique(rows[:, [0, 2, 3]], axis=0)
-    _report_rows(rows, report)
-    n_tot = max(len(events), 1)
-    tot_len = int((events[:, 2].astype(np.int64) - events[:, 1]).sum())
-    utils.log(f"Average number of best matches {n_tot / q.M:.1f}, "
-              f"Average length {tot_len / n_tot:.1f}")
+    query = q.haplotypes()
+    reference = p.haplotypes()
+    N, M = p.N, p.M
+    Y = p.decoded(True)
+    # build indexes
+    A = np.empty((N + 1, M), dtype=np.int32)
+    D = np.empty((N + 1, M + 1), dtype=np.int32)
+    U = np.empty((N, M + 1), dtype=np.int32)
+    CC = np.empty(N, dtype=np.int32)
+    a = p.aFstart.copy()
+    d = np.zeros(M + 1, dtype=np.int32)
+    d[0] = 1
+    d[M] = 1
+    for k in range(N):
+        A[k] = a
+        D[k] = d
+        u, c = engine.calculate_u(Y[k])
+        U[k] = u
+        CC[k] = c
+        a, d = engine.forwards_ad(a, d, Y[k], k)
+    A[N] = a
+    D[N] = d
+
+    n_tot, tot_len = 0, 0
+    for j in range(q.M):
+        x = query[j]
+        e, f, g = 0, 0, M
+        for k in range(N):
+            if x[k]:
+                f1 = CC[k] + (f - U[k][f])
+                g1 = CC[k] + (g - U[k][g])
+            else:
+                f1 = int(U[k][f])
+                g1 = int(U[k][g])
+            if g1 > f1:
+                f, g = f1, g1
+                continue
+            # reached a maximum - report and reset e, f, g
+            for i in range(f, g):
+                report(j, int(A[k][i]), e, k)
+            n_tot += 1
+            tot_len += k - e
+            e1 = int(D[k + 1][f1]) - 1
+            # NB when f1 is 0 or M, e1 may be k+1 (sentinel d) and x[e1] can
+            # be out of range, but the branch taken doesn't depend on it:
+            # f1==M forces the first branch and f1==0 the second
+            if f1 == M or (f1 > 0 and x[e1] == 0):
+                f1 = g1 - 1
+                y = reference[A[k + 1][f1]]
+                while e1 > 0 and x[e1 - 1] == y[e1 - 1]:
+                    e1 -= 1
+                while D[k + 1][f1] <= e1:
+                    f1 -= 1
+            elif f1 < M:
+                g1 = f1 + 1
+                y = reference[A[k + 1][f1]]
+                while e1 > 0 and x[e1 - 1] == y[e1 - 1]:
+                    e1 -= 1
+                while g1 < M and D[k + 1][g1] <= e1:
+                    g1 += 1
+            e, f, g = e1, f1, g1
+        for i in range(f, g):
+            report(j, int(A[N][i]), e, N)
+        n_tot += 1
+        tot_len += N - e
+    log(f"Average number of best matches {n_tot / q.M:.1f}, "
+        f"Average length {tot_len / n_tot:.1f}")
 
 
 def match_sequences_sweep(p: PBWT, q: PBWT, report, device=None) -> None:
-    """-matchDynamic (matchSequencesSweep, pbwtMatch.c:363-443): the same
-    match set ordered as the sweep reports it, by end site and within a
-    site by the queries' PBWT order (pbwtMatch.c:376)."""
+    """The production dynamic matcher (matchSequencesSweep,
+    pbwtMatch.c:363-443): joint sweep of panel and query cursors keeping per
+    query the best-match pointer f and its start d.
+
+    On the device route the match set is computed by the DeviceMatcher and
+    re-ordered into the sweep's exact report sequence (per end site, queries
+    in query-PBWT sort order, pbwtMatch.c:376), so stdout is byte-identical
+    to the host sweep."""
     if q.N != p.N:
         raise ValueError(f"query length {q.N} != PBWT length {p.N}")
-    if not _use_device(p):
-        host_match.match_sequences_sweep(p, q, report)
+    M, N, QM = p.M, p.N, q.M
+
+    if _use_device(p):
+        rows = _matcher(p, device).match(q.haplotypes())
+        Yq = q.decoded(True)
+        aq = (q.aFstart if q.aFstart is not None
+              else np.arange(QM, dtype=np.int32)).copy()
+        qpos = np.empty((N + 1, QM), np.int32)
+        for k in range(N):
+            qpos[k, aq] = np.arange(QM)
+            aq = engine.forwards_a(aq, Yq[k])
+        qpos[N, aq] = np.arange(QM)
+        rows = rows[np.lexsort((np.arange(len(rows)),
+                                qpos[rows[:, 3], rows[:, 0]], rows[:, 3]))]
+        _report_rows(rows, report)
+        n_tot = len(rows)
+        tot_len = int((rows[:, 3].astype(np.int64) - rows[:, 2]).sum())
+        log(f"Average number of best matches including alternates "
+            f"{n_tot / QM:.1f}, Average length "
+            f"{tot_len / max(n_tot, 1):.1f}, Av number per position "
+            f"{tot_len / (QM * N):.1f}")
         return
-    N, QM = p.N, q.M
-    rows = _matcher(p, device).match(q.haplotypes())
+
+    ap0 = p.aFstart if p.aFstart is not None else np.arange(M, dtype=np.int32)
+    aq0 = q.aFstart if q.aFstart is not None else np.arange(QM, dtype=np.int32)
+    if p.yz and q.yz and report is report_match_stdout:
+        # stream MATCH lines straight from the C sweep to the stdout fd
+        sys.stdout.flush()
+        fd = native._stdout_fd(sys.stdout)
+        if fd >= 0:
+            st = native.sweep_match_print(p.yz, M, q.yz, QM, N, ap0, aq0, fd)
+            if st is not None:
+                n_rep, tot_len, nz = st
+                log(f"Average number of best matches including alternates "
+                    f"{n_rep / QM:.1f}, Average length "
+                    f"{tot_len / max(nz, 1):.1f}, Av number per position "
+                    f"{tot_len / (QM * N):.1f}")
+                return
+    if p.yz and q.yz:
+        rows = native.sweep_match_packed(p.yz, M, q.yz, QM, N, ap0, aq0)
+    else:
+        rows = native.sweep_match(p.decoded(True), ap0, q.decoded(True), aq0)
+    if rows is not None:
+        _report_rows(rows, report)
+        nz = rows[rows[:, 2] != rows[:, 3]]
+        tot_len = int((nz[:, 3] - nz[:, 2]).sum())
+        log(f"Average number of best matches including alternates "
+            f"{len(rows) / QM:.1f}, Average length "
+            f"{tot_len / max(len(nz), 1):.1f}, Av number per position "
+            f"{tot_len / (QM * N):.1f}")
+        return
+
+    Yp = p.decoded(True)
     Yq = q.decoded(True)
-    aq = (q.aFstart if q.aFstart is not None
-          else np.arange(QM, dtype=np.int32)).copy()
-    qpos = np.empty((N + 1, QM), np.int32)
+    up_a = ap0.copy()
+    up_d = np.zeros(M + 1, dtype=np.int32)
+    up_d[0] = 1
+    up_d[M] = 1
+    uq_a = (q.aFstart if q.aFstart is not None else np.arange(QM, dtype=np.int32)).copy()
+    f = np.zeros(QM, dtype=np.int64)
+    d = np.zeros(QM, dtype=np.int64)
+    n_tot, tot_len = 0, 0
+
     for k in range(N):
-        qpos[k, aq] = np.arange(QM)
-        aq = engine.forwards_a(aq, Yq[k])
-    qpos[N, aq] = np.arange(QM)
-    rows = rows[np.lexsort((np.arange(len(rows)),
-                            qpos[rows[:, 3], rows[:, 0]], rows[:, 3]))]
-    _report_rows(rows, report)
-    n_tot = len(rows)
-    tot_len = int((rows[:, 3].astype(np.int64) - rows[:, 2]).sum())
-    utils.log(f"Average number of best matches including alternates "
-              f"{n_tot / QM:.1f}, Average length "
-              f"{tot_len / max(n_tot, 1):.1f}, Av number per position "
-              f"{tot_len / (QM * N):.1f}")
+        yp = Yp[k]
+        yq = Yq[k]
+        dm = up_d
+        for j in range(QM):
+            jj = int(uq_a[j])
+            x = int(yq[j])
+            fj = int(f[jj])
+            if yp[fj] == x:
+                continue
+            # the current match ends here: try same-length extension first
+            i_plus = fj
+            extended = False
+            while True:
+                i_plus += 1
+                if i_plus >= M or dm[i_plus] > d[jj]:
+                    break
+                if yp[i_plus] == x:
+                    f[jj] = i_plus
+                    extended = True
+                    break
+            if extended:
+                continue
+            # report matches [f[jj], i_plus)
+            for i in range(fj, i_plus):
+                report(jj, int(up_a[i]), int(d[jj]), k)
+            n_tot += i_plus - fj
+            tot_len += (k - int(d[jj])) * (i_plus - fj)
+            # find new best match by widening [i_minus, i_plus]
+            i_minus = fj
+            d_plus = int(dm[i_plus]) if i_plus < M else k
+            d_minus = int(dm[i_minus])
+            while True:
+                if d_minus <= d_plus:
+                    i = -1
+                    while dm[i_minus] <= d_minus:   # d[0] = k+1 prevents underflow
+                        i_minus -= 1
+                        if yp[i_minus] == x:
+                            i = i_minus
+                    if i >= 0:
+                        f[jj] = i
+                        d[jj] = d_minus
+                        break
+                    d_minus = int(dm[i_minus])
+                else:
+                    found = False
+                    while i_plus < M and dm[i_plus] <= d_plus:
+                        if yp[i_plus] == x:
+                            f[jj] = i_plus
+                            d[jj] = d_plus
+                            found = True
+                            break
+                        i_plus += 1
+                    if found:
+                        break
+                    d_plus = k if i_plus == M else int(dm[i_plus])
+                    if i_minus == 0 and i_plus == M:
+                        log(f"no match to query {jj} value {x} at site {k}")
+                        d[jj] = k + 1
+                        break
+        # vectorised FM-step of all query pointers
+        u, c = engine.calculate_u(yp)
+        xq = np.zeros(QM, dtype=np.uint8)
+        xq[uq_a] = yq                     # query values in natural order? no:
+        # mirror reference exactly: f[jj] updated using uq order
+        jjs = uq_a.astype(np.int64)
+        fs = f[jjs]
+        xs = yq.astype(np.int64)
+        newf = np.where(xs != 0, c + fs - u[fs], u[fs])
+        newf = np.where(newf == M, 0, newf)   # trap (pbwtMatch.c:421-422)
+        f[jjs] = newf
+        up_a, up_d = engine.forwards_ad(up_a, up_d, yp, k)
+        uq_a = engine.forwards_a(uq_a, yq)
+
+    # record matches ending at N (pbwtMatch.c:430-436)
+    for j in range(QM):
+        jj = int(uq_a[j])
+        report(jj, int(up_a[f[jj]]), int(d[jj]), N)
+        i = int(f[jj]) + 1
+        while i < M and up_d[i] <= d[jj]:
+            report(jj, int(up_a[i]), int(d[jj]), N)
+            i += 1
+        n_tot += i - int(f[jj])
+        tot_len += (N - int(d[jj])) * (i - int(f[jj]))
+
+    log(f"Average number of best matches including alternates {n_tot / QM:.1f}, "
+        f"Average length {tot_len / n_tot:.1f}, "
+        f"Av number per position {tot_len / (QM * N):.1f}")
 
 
 def match_sequences_dynamic(p: PBWT, fp, device=None) -> None:

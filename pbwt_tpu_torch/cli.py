@@ -1,13 +1,15 @@
 """Command line of the port: argv is a left-to-right pipeline of
 commands on one current PBWT, as ``pbwt_tpu/cli.py`` (pbwtMain.c:276-494),
-for the commands this port serves. I/O is pbwt_tpu's host code; the match
-commands take the device routes of :mod:`pbwt_tpu_torch.algos.match`, and
--llCopyModel that of :mod:`pbwt_tpu_torch.algos.likelihood`."""
+for the commands this port serves. The match commands take the device
+routes of :mod:`pbwt_tpu_torch.algos.match`, -llCopyModel that of
+:mod:`pbwt_tpu_torch.algos.likelihood`, and the importers build on the device
+engine; ``PBWT_TORCH_DEVICE`` decides (:mod:`pbwt_tpu_torch.ops`)."""
 
 from __future__ import annotations
 
-import os
 import sys
+
+from .ops import NoDeviceError
 
 HELP = """Program: pbwt (PyTorch/CUDA port)
 Usage: python -m pbwt_tpu_torch [ -<command> [options]* ]+
@@ -52,9 +54,6 @@ def _close(fp, name: str) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     """die()-style wrapper: clean one-line fatal errors like the reference."""
-    # pbwt_tpu's host code asks its own device_requested(), which would import
-    # jax; this process routes devices itself
-    os.environ["PBWT_TPU_DEVICE"] = "0"
     try:
         return _main(argv)
     except BrokenPipeError:
@@ -62,7 +61,7 @@ def main(argv: list[str] | None = None) -> int:
     except FileNotFoundError as e:
         sys.stderr.write(f"pbwt: failed to open file {e.filename}\n")
         return 1
-    except ValueError as e:
+    except (ValueError, NoDeviceError) as e:
         sys.stderr.write(f"pbwt: {e}\n")
         return 1
     except AttributeError as e:
@@ -74,8 +73,10 @@ def main(argv: list[str] | None = None) -> int:
 
 
 def _main(argv: list[str] | None) -> int:
+    from . import utils
     from .algos import likelihood, match
-    from .host import pbwtfile, registry, textformats, utils, vcf
+    from .core import registry
+    from .io import pbwtfile, textformats, vcf
 
     argv = list(sys.argv[1:] if argv is None else argv)
     registry.init()

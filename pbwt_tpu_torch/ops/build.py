@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import host
+from ..core import native, pack3
 from . import resolve_device
 from .partition import GROUP, group_partition
 
@@ -81,6 +81,6 @@ def build_pbwt_device(X: np.ndarray, device=None):
     Ysort = unpack_columns(ycols[:N].cpu().numpy(), M)
     # the native column encoder when the C runtime is there: numpy's
     # pack_columns spends most of its time in np.unique at this size
-    yz, _ = host.native.encode_cols(Ysort) or host.pack3.pack_columns(Ysort)
+    yz, _ = native.encode_cols(Ysort) or pack3.pack_columns(Ysort)
     return (yz, a_end[:M].cpu().numpy().astype(np.int32),
             counts[:N].cpu().numpy())

@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "k1_group_partition": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                            _P],
@@ -40,6 +41,7 @@ _SIGNATURES = {
     "k3_match_scan": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                       _P, _I, _P, _P],
     "k4_ls_step": [_I, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P],
+    "k4_ls_eval": [_I, _P, _L, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P],
 }
 
 # kernel name -> number of wrapper calls that launched it

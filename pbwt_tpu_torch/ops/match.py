@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import host
+from ..core import native
 from . import kernels, resolve_device
 from .build import pad_to
 from .partition import GROUP, partition_ad_step
@@ -250,7 +250,6 @@ class DeviceMatcher:
         """Build from a packed PBWT, decoding the pack3 stream a chunk of
         sites at a time (O(M * chunk) host bytes) instead of materialising
         the (M, N) haplotype matrix."""
-        native = host.native
         self = cls.__new__(cls)
         M, N = p.M, p.N
         self._shape_init(M, N, device)

@@ -1,8 +1,9 @@
 """The port's CLI end to end in a subprocess, on the CPU with the device
-route forced (plain twins) or left to its default: stdout byte-identical to
-the JAX package's CLI on its host engine (f32-close for the copy model's
-device route), and no jax imported. A subprocess, because this test process
-imports jax (tests/conftest.py)."""
+route named (PBWT_TORCH_DEVICE=cpu, plain twins) or left to its default:
+stdout byte-identical to the JAX package's CLI on its host engine (f32-close
+for the copy model's device route), and neither jax nor any module of the
+JAX package imported. A subprocess, because this test process imports both
+(tests/conftest.py)."""
 
 import os
 import re
@@ -17,7 +18,8 @@ from pbwt_tpu.io import pbwtfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# runs the port as `python -m pbwt_tpu_torch ARGS`, then checks for jax
+# runs the port as `python -m pbwt_tpu_torch ARGS`, then checks that neither
+# jax nor the JAX package was imported
 RUN_PORT = """
 import runpy, sys
 sys.argv = ["pbwt_tpu_torch"] + sys.argv[1:]
@@ -26,8 +28,10 @@ try:
 except SystemExit as e:
     rc = e.code
 sys.stdout.flush()
-if "jax" in sys.modules:
-    sys.exit("jax was imported")
+alien = sorted(m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "pbwt_tpu"))
+if alien:
+    sys.exit("imported: " + " ".join(alien))
 sys.exit(rc)
 """
 
@@ -99,7 +103,7 @@ def test_cli_match_equals_host(files, cmd):
     p, q = files
     args = ["-read", p, cmd, q]
     port = _run([sys.executable, "-c", RUN_PORT, *args],
-                {"PBWT_TORCH_DEVICE": "1", "CUDA_VISIBLE_DEVICES": "",
+                {"PBWT_TORCH_DEVICE": "cpu", "CUDA_VISIBLE_DEVICES": "",
                  "OMP_NUM_THREADS": "1"})
     assert port.returncode == 0, port.stderr.decode()
     ref = _run([sys.executable, "-m", "pbwt_tpu", *args],
@@ -107,6 +111,31 @@ def test_cli_match_equals_host(files, cmd):
     assert ref.returncode == 0, ref.stderr.decode()
     assert port.stdout.count(b"\n") > 12
     assert port.stdout == ref.stdout
+
+
+def test_cli_device_route_needs_a_card_or_the_cpu_named(files):
+    """PBWT_TORCH_DEVICE=1 without a CUDA card is a one-line error, not a
+    quiet run of the twins on the CPU."""
+    p, q = files
+    res = _run([sys.executable, "-c", RUN_PORT, "-read", p, "-matchDynamic",
+                q], {"PBWT_TORCH_DEVICE": "1", "CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode == 1 and res.stdout == b""
+    err = res.stderr.decode().strip().splitlines()
+    assert err[-1].startswith("pbwt: no CUDA device")
+    assert "PBWT_TORCH_DEVICE=cpu" in err[-1]
+
+
+def test_cli_host_route_imports_no_torch(files):
+    """PBWT_TORCH_DEVICE=0: a command that stays on the host engine does not
+    pay for importing torch."""
+    p, q = files
+    script = RUN_PORT.replace('("jax", "jaxlib", "pbwt_tpu")',
+                              '("jax", "jaxlib", "pbwt_tpu", "torch")')
+    assert script != RUN_PORT
+    res = _run([sys.executable, "-c", script, "-read", p, "-matchDynamic", q],
+               {"PBWT_TORCH_DEVICE": "0"})
+    assert res.returncode == 0, res.stderr.decode()
+    assert res.stdout.count(b"\n") > 12
 
 
 def test_cli_refuses_other_commands(files):
@@ -156,13 +185,13 @@ NUMBER = re.compile(r"-?\d+\.\d+")
 
 
 def test_cli_llcopymodel_device_route(ll_panel):
-    """PBWT_TORCH_DEVICE=1 without a card: the fit runs on K4's twin. The
+    """PBWT_TORCH_DEVICE=cpu: the fit runs on K4's twin. The
     text equals the host's outside the numbers; LLs agree to 1e-5
     relative; the fitted theta and rho to 1% (the line search's bracket
     tolerance is 1.001, and f32 noise can move its last choice)."""
     port, host = _port_and_host(["-read", ll_panel, "-llCopyModel", "0.05",
                                  "0.01"],
-                                {"PBWT_TORCH_DEVICE": "1",
+                                {"PBWT_TORCH_DEVICE": "cpu",
                                  "CUDA_VISIBLE_DEVICES": ""})
     assert port != host
     assert NUMBER.sub("#", port) == NUMBER.sub("#", host)
@@ -187,7 +216,7 @@ def test_cli_io_commands_equal_host(tmp_path):
     outs = {}
     for side, argv0, env in (
             ("port", [sys.executable, "-c", RUN_PORT],
-             {"PBWT_TORCH_DEVICE": "1", "OMP_NUM_THREADS": "1"}),
+             {"PBWT_TORCH_DEVICE": "cpu", "OMP_NUM_THREADS": "1"}),
             ("host", [sys.executable, "-m", "pbwt_tpu"],
              {"PBWT_TPU_DEVICE": "0"})):
         d = tmp_path / side
