@@ -29,8 +29,8 @@ def _compile() -> bool:
     library."""
     cc = os.environ.get("CC", "cc")
     tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [cc, "-O3", "-march=native", "-shared", "-fPIC", "-pthread",
-           "-o", tmp, _SRC, "-lz"]
+    cmd = [cc, "-O3", "-march=native", "-shared", "-fPIC",
+           "-o", tmp, _SRC]
     try:
         os.makedirs(os.path.dirname(_SO), exist_ok=True)
         res = subprocess.run(cmd, capture_output=True, timeout=300)
@@ -51,8 +51,6 @@ def get_lib():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if os.environ.get("PBWT_TORCH_NO_NATIVE"):
-        return None
     try:
         if (not os.path.exists(_SO)
                 or (os.path.exists(_SRC)
@@ -75,20 +73,10 @@ def get_lib():
     lib.p3_decode_cols.argtypes = [u8p, L, L, L, u8p]
     lib.fwd_a.restype = L
     lib.fwd_a.argtypes = [i32p, u8p, i32p, L]
-    lib.fwd_ad.restype = L
-    lib.fwd_ad.argtypes = [i32p, i32p, u8p, i32p, i32p, L, ctypes.c_int32]
     lib.build_pbwt.restype = L
     lib.build_pbwt.argtypes = [u8p, L, L, i32p, u8p, L]
-    lib.max_within.restype = L
-    lib.max_within.argtypes = [u8p, L, L, i32p, i64p, L]
-    lib.long_within.restype = L
-    lib.long_within.argtypes = [u8p, L, L, L, i32p, i64p, L]
     lib.sweep_match.restype = L
     lib.sweep_match.argtypes = [u8p, L, u8p, L, L, i32p, i32p, i64p, L]
-    lib.max_within_packed.restype = L
-    lib.max_within_packed.argtypes = [u8p, L, L, L, i32p, i64p, L]
-    lib.long_within_packed.restype = L
-    lib.long_within_packed.argtypes = [u8p, L, L, L, L, i32p, i64p, L]
     lib.sweep_match_packed.restype = L
     lib.sweep_match_packed.argtypes = [u8p, L, L, u8p, L, L, L, i32p, i32p,
                                        i64p, L]
@@ -98,15 +86,6 @@ def get_lib():
     lib.col_counts.argtypes = [u8p, L, L, L, i64p]
     lib.format_match_rows.restype = L
     lib.format_match_rows.argtypes = [i64p, L, u8p, L]
-    lib.max_within_print.restype = L
-    lib.max_within_print.argtypes = [u8p, L, L, L, i32p, ctypes.c_int]
-    lib.max_within_bucket_count.restype = L
-    lib.max_within_bucket_count.argtypes = [u8p, L, L, L, i32p, i64p]
-    lib.max_within_bucket_fill.restype = L
-    lib.max_within_bucket_fill.argtypes = [u8p, L, L, L, i32p, i32p, i32p,
-                                           i32p, i64p]
-    lib.long_within_print.restype = L
-    lib.long_within_print.argtypes = [u8p, L, L, L, L, i32p, ctypes.c_int]
     lib.sweep_match_print.restype = L
     lib.sweep_match_print.argtypes = [u8p, L, L, u8p, L, L, L, i32p, i32p,
                                       ctypes.c_int, i64p]
@@ -115,92 +94,13 @@ def get_lib():
                                      i32p]
     lib.transpose_u8.restype = None
     lib.transpose_u8.argtypes = [u8p, L, L, u8p]
-    lib.expand_records.restype = L
-    lib.expand_records.argtypes = [u8p, L, L, L, i64p, i32p, i32p, i32p,
-                                   i32p, i32p, L]
-    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
     i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
     lib.vcf_parse_gt.restype = L
     lib.vcf_parse_gt.argtypes = [ctypes.c_char_p, L, L, L, i8p]
-    lib.phase_resolve.restype = None
-    lib.phase_resolve.argtypes = [f64p, L, L, L, i32p, i32p, f64p, f64p,
-                                  ctypes.c_double]
-    lib.paint_accumulate.restype = None
-    lib.paint_accumulate.argtypes = [i32p, i32p, i32p, i64p, L, L, L, L, L,
-                                     ctypes.c_double, f64p, f64p, f64p,
-                                     f64p, f64p, f64p]
-    lib.paint_sparse_ind.restype = None
-    lib.paint_sparse_ind.argtypes = [i32p, i32p, i32p, i64p, L, L, L, L, L,
-                                     L, ctypes.c_double, f64p, f64p, f64p,
-                                     f64p, f64p, f64p, f64p]
-    lib.bucket_rows.restype = None
-    lib.bucket_rows.argtypes = [i64p, L, L, i32p, i32p, i32p, i64p]
-    lib.paint_sparse_all.restype = L
-    lib.paint_sparse_all.argtypes = [i32p, i32p, i32p, i64p, L, L, L, L, L,
-                                     ctypes.c_double, ctypes.c_char_p]
-    lib.impute_vote.restype = None
-    lib.impute_vote.argtypes = [i32p, i32p, i32p, i64p, i32p, L, L, u8p, L,
-                                i64p, f64p, u8p, f64p, u8p, f64p, f64p,
-                                f64p, i64p]
-    lib.phase_stop_max.restype = None
-    lib.phase_stop_max.argtypes = [i32p, u8p, ctypes.c_int, L, i64p, i64p]
-    lib.expand_records_mt.restype = L
-    lib.expand_records_mt.argtypes = [u8p, L, L, L, L, i64p, i32p, i64p,
-                                      i32p, i32p, i32p, i32p, i64p, i32p]
     lib.natural_cols.restype = L
     lib.natural_cols.argtypes = [u8p, L, L, L, i32p, u8p, i64p]
-    lib.impute_emit.restype = L
-    lib.impute_emit.argtypes = [u8p, f64p, L, L, i32p, u8p, L, u8p, L,
-                                i64p, i64p]
-    lib.impute_vote_emit.restype = L
-    lib.impute_vote_emit.argtypes = [u8p, L, L, L, i32p, i32p, i32p, i32p,
-                                     i64p, i32p, L, i32p, i64p,
-                                     L, u8p, L, i64p,
-                                     u8p, L, u8p, L, i64p, f64p,
-                                     f64p, f64p, f64p, i64p, i64p]
-    lib.ref_phase4_core.restype = L
-    lib.ref_phase4_core.argtypes = [u8p, L, L, u8p, L, L, L, i32p, i32p,
-                                    i64p]
-    lib.ref_phase4_heap.restype = None
-    lib.ref_phase4_heap.argtypes = [i32p, u8p]
-    lib.phase_sweep_core.restype = L
-    lib.phase_sweep_core.argtypes = [u8p, L, L, L, i32p, L, u8p, L, i32p,
-                                     i32p, L, i32p, L, f64p,
-                                     ctypes.c_double, u8p, L, i32p, i32p]
-    lib.crand_srand.restype = None
-    lib.crand_srand.argtypes = [ctypes.c_uint32]
-    lib.crand_next.restype = L
-    lib.crand_next.argtypes = []
-    lib.corrupt_sites_core.restype = L
-    lib.corrupt_sites_core.argtypes = [u8p, L, L, L, i32p, L, L,
-                                       ctypes.c_double, u8p, L, i32p, i64p]
-    lib.corrupt_samples_core.restype = L
-    lib.corrupt_samples_core.argtypes = [u8p, L, L, L, i32p, L, L,
-                                         ctypes.c_double, u8p, L, i32p,
-                                         i64p]
-    lib.copy_samples_core.restype = L
-    lib.copy_samples_core.argtypes = [u8p, L, L, L, i32p, L, L, u8p, L,
-                                      i32p, i64p]
-    lib.format_f4_row.restype = L
-    lib.format_f4_row.argtypes = [f64p, L, ctypes.c_char_p]
-    lib.format_f4_rows.restype = L
-    lib.format_f4_rows.argtypes = [f64p, L, L, ctypes.c_char_p, i64p]
-    lib.merge_core.restype = L
-    lib.merge_core.argtypes = [L, ctypes.POINTER(ctypes.c_void_p), i64p,
-                               i64p, i64p, u8p, i64p, i32p, L, i32p, u8p, L]
-    lib.segs_sort.restype = L
-    lib.segs_sort.argtypes = [i64p, L, L, i32p, i32p, i32p, i64p]
-    lib.buckets_sort_start.restype = L
-    lib.buckets_sort_start.argtypes = [i32p, i32p, i32p, i64p, L]
     lib.build_reverse_core.restype = L
     lib.build_reverse_core.argtypes = [u8p, L, L, L, i32p, u8p, L, i32p]
-    lib.gtcompare_core.restype = L
-    lib.gtcompare_core.argtypes = [u8p, L, u8p, L, L, L, i32p, i32p,
-                                   f64p, f64p, f64p, L, i64p, i64p,
-                                   f64p, i64p, f64p, i64p]
-    lib.phase_compare_core.restype = L
-    lib.phase_compare_core.argtypes = [u8p, L, u8p, L, L, L, i32p, i32p,
-                                       i64p, i64p, i64p]
     _lib = lib
     return _lib
 
@@ -296,131 +196,6 @@ def build_pbwt_chunk(cols: np.ndarray, a: np.ndarray):
     return yz[:n].tobytes()
 
 
-def _corrupt_call(fn_name, yzold: bytes, M: int, N: int, a0: np.ndarray,
-                  args: tuple, M_new: int | None = None):
-    lib = get_lib()
-    if lib is None:
-        return None
-    z = np.frombuffer(bytes(yzold), np.uint8)
-    Mout = M_new if M_new is not None else M
-    cap = N * (Mout + 8) + 16
-    yz = pooled(cap, "corrupt_yz")
-    a_end = np.empty(Mout, np.int32)
-    lens = np.empty(1, np.int64)
-    rc = getattr(lib, fn_name)(z, len(z), M, N,
-                               np.ascontiguousarray(a0, np.int32),
-                               *args, yz, cap, a_end, lens)
-    if rc < 0:
-        raise ValueError(f"{fn_name}: corrupt stream or overflow")
-    return yz[:lens[0]].tobytes(), a_end, int(rc)
-
-
-def corrupt_sites_core(yzold, M, N, a0, r_site, r_change, r_fac):
-    """pbwtCorruptSites streaming core; (yz, a_end, n_change) or None."""
-    return _corrupt_call("corrupt_sites_core", yzold, M, N, a0,
-                         (r_site, r_change, float(r_fac)))
-
-
-def corrupt_samples_core(yzold, M, N, a0, r_sample, r_change, r_fac):
-    """pbwtCorruptSamples streaming core; (yz, a_end, n_change) or None."""
-    return _corrupt_call("corrupt_samples_core", yzold, M, N, a0,
-                         (r_sample, r_change, float(r_fac)))
-
-
-def copy_samples_core(yzold, M_old, N, a0, m_new, r_switch):
-    """pbwtCopySamples streaming core; (yz, a_end, 0) or None."""
-    return _corrupt_call("copy_samples_core", yzold, M_old, N, a0,
-                         (m_new, r_switch), M_new=m_new)
-
-
-def phase_sweep_core(yzp: bytes, M: int, N: int, ap0: np.ndarray,
-                     is_start: bool, r_yz: bytes | None, ar0, rbinv0,
-                     aq0, n_sparse: int, score_bit: np.ndarray,
-                     thresh: float):
-    """One whole phaseSweep pass (pbwtImpute.c:288-372) in C.
-
-    Returns (yz bytes, aq_end, bq_end) or None when the native library is
-    unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    zp = np.frombuffer(bytes(yzp), np.uint8)
-    zr = np.frombuffer(bytes(r_yz) if r_yz else b"\x00", np.uint8)
-    dummy = np.zeros(1, np.int32)
-    ap0 = np.ascontiguousarray(ap0, np.int32)
-    ar0 = (np.ascontiguousarray(ar0, np.int32) if ar0 is not None
-           else dummy)
-    rbinv0 = (np.ascontiguousarray(rbinv0, np.int32) if rbinv0 is not None
-              else dummy)
-    aq0 = (np.ascontiguousarray(aq0, np.int32) if aq0 is not None
-           else np.arange(M, dtype=np.int32))
-    cap = N * (M + 8) + 16
-    yz = pooled(cap, "phase_sweep_yz")
-    aq_end = np.empty(M, np.int32)
-    bq_end = np.empty(M, np.int32)
-    n = lib.phase_sweep_core(
-        zp, len(zp), M, N, ap0, 1 if is_start else 0,
-        zr, len(zr), ar0, rbinv0, 1 if r_yz else 0,
-        aq0, n_sparse, np.ascontiguousarray(score_bit, np.float64),
-        float(thresh), yz, cap, aq_end, bq_end)
-    if n < 0:
-        raise ValueError("phase_sweep_core: corrupt stream or overflow")
-    return yz[:n].tobytes(), aq_end, bq_end
-
-
-def ref_phase4_core(yzold: bytes, Mold: int, yzref: bytes, Mref: int,
-                    N: int, aold0: np.ndarray, aref0: np.ndarray):
-    """The referencePhase4 forward lattice (pbwtImpute.c:905-1005) as one
-    streaming C pass.  Returns (tb int64[n_pairs] — the traceback root of
-    each diploid's best final cell — tb_parent int32[n], tb_value uint8[n])
-    or None when the native library is unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    bo = np.frombuffer(bytes(yzold), np.uint8)
-    br = np.frombuffer(bytes(yzref), np.uint8)
-    n_pairs = Mold // 2
-    tb = np.empty(n_pairs, np.int64)
-    n = lib.ref_phase4_core(bo, len(bo), Mold, br, len(br), Mref, N,
-                            np.ascontiguousarray(aold0, np.int32),
-                            np.ascontiguousarray(aref0, np.int32), tb)
-    if n < 0:
-        raise ValueError("ref_phase4_core: corrupt pack3 stream")
-    parent = np.empty(n, np.int32)
-    value = np.empty(n, np.uint8)
-    lib.ref_phase4_heap(parent, value)
-    return tb, parent, value
-
-
-def format_f4_row(vals: np.ndarray):
-    """One table row as ' %.4f' per value (glibc printf semantics, like
-    the reference's fprintf loops), or None."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    vals = np.ascontiguousarray(vals, np.float64)
-    buf = ctypes.create_string_buffer(16 * len(vals) + 16)
-    n = lib.format_f4_row(vals, len(vals), buf)
-    return buf.raw[:n].decode()
-
-
-def format_f4_rows(table: np.ndarray):
-    """Whole (R, C) table as per-row ' %.4f' strings in ONE native call
-    (the per-row ctypes overhead dominated -paint's emitters).  Returns a
-    list of R strings, or None."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    table = np.ascontiguousarray(table, np.float64)
-    R, C = table.shape
-    buf = pooled(16 * R * C + 16, "fmt_f4_rows")
-    offs = np.empty(R + 1, np.int64)
-    lib.format_f4_rows(table.reshape(-1), R, C,
-                       buf.ctypes.data_as(ctypes.c_char_p), offs)
-    raw = bytes(buf[:offs[R]])
-    return [raw[offs[r]:offs[r + 1]].decode() for r in range(R)]
-
-
 def pack_advance(y: np.ndarray, a: np.ndarray):
     """One write-cursor step (pbwtCursorWriteForwards, pbwtCore.c:573-578):
     pack3-encode the sorted column and advance ``a`` IN PLACE.  Returns the
@@ -435,50 +210,6 @@ def pack_advance(y: np.ndarray, a: np.ndarray):
     ones = pooled_view(M, np.int32, "pack_adv_ones")
     lib.fwd_a(a, y, ones, M)
     return out[:nb].tobytes()
-
-
-def merge_core(yzs: list[bytes], Ms: list[int], a0s: list[np.ndarray],
-               acts: list[np.ndarray], n_emit: int):
-    """Multi-PBWT merge (pbwtMerge.c:129-208) as one streaming C pass.
-
-    yzs/Ms/a0s: per input file, the pack3 stream, haplotype count and
-    starting prefix array; acts[f] is the file's action stream over its
-    consumed columns in order (1 = column of an emitted shared site,
-    0 = discard) with exactly n_emit ones.  Returns (yz, a_end) for the
-    merged PBWT, or None when the native library is unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    nf = len(yzs)
-    Mtot = int(sum(Ms))
-    # zero-copy input streams: per-file pointers into the caller's own
-    # bytes objects (kept alive by `views` for the duration of the call)
-    views = [np.frombuffer(z, np.uint8) for z in yzs]
-    ptrs = (ctypes.c_void_p * nf)(*[v.ctypes.data for v in views])
-    nzs = np.asarray([len(v) for v in views], np.int64)
-    Ms_arr = np.asarray(Ms, np.int64)
-    a_off = np.zeros(nf + 1, np.int64)
-    np.cumsum(Ms_arr, out=a_off[1:])
-    a_all = np.concatenate([np.ascontiguousarray(a, np.int32)
-                            for a in a0s])
-    act_all = np.concatenate([np.ascontiguousarray(a, np.uint8)
-                              for a in acts]) if acts else np.zeros(0, np.uint8)
-    act_off = np.zeros(nf + 1, np.int64)
-    np.cumsum([len(a) for a in acts], out=act_off[1:])
-    a_out = np.arange(Mtot, dtype=np.int32)
-    # shared emitted sites re-encode to about their input footprint; the
-    # retry loop covers the pathological case
-    cap = int(nzs.sum() + 32 * n_emit + 65536)
-    while True:
-        yz_out = np.empty(cap, np.uint8)
-        n = lib.merge_core(nf, ptrs, nzs, Ms_arr, a_off, act_all,
-                           act_off, a_all.copy(), n_emit, a_out, yz_out, cap)
-        if n < 0:
-            raise ValueError("merge_core: corrupt pack3 stream")
-        if n <= cap:
-            return yz_out[:n].tobytes(), a_out
-        cap = int(n)
-        a_out = np.arange(Mtot, dtype=np.int32)
 
 
 def natural_cols(yz: bytes, ncols: int, M: int, a0: np.ndarray,
@@ -506,77 +237,6 @@ def natural_cols(yz: bytes, ncols: int, M: int, a0: np.ndarray,
     return X, a, counts
 
 
-def segs_sort(rows: np.ndarray, T: int):
-    """Match rows (n, 4) int64 [j, jr, s, e] -> per-target start-sorted
-    i32 columns (jr, s, e) + seg_off (T+1,) int64, in one C pass.
-    Returns None when the native library is unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    rows = np.ascontiguousarray(rows, np.int64)
-    n = len(rows)
-    jr = np.empty(n, np.int32)
-    s = np.empty(n, np.int32)
-    e = np.empty(n, np.int32)
-    seg_off = np.empty(T + 1, np.int64)
-    if lib.segs_sort(rows.reshape(-1), n, T, jr, s, e, seg_off) < 0:
-        raise MemoryError("segs_sort")
-    return jr, s, e, seg_off
-
-
-def phase_compare_core(yzp: bytes, yzq: bytes, M: int, N: int,
-                       ap0: np.ndarray, aq0: np.ndarray):
-    """phaseCompare's per-pair switch scan as one streaming C pass.
-    Returns (n_switch, n_het, n_switch1, n_switch5, n_switch_sample,
-    n_switch_site) or None."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    bp = np.frombuffer(bytes(yzp), np.uint8)
-    bq = np.frombuffer(bytes(yzq), np.uint8)
-    out4 = np.zeros(4, np.int64)
-    nss = np.zeros(M // 2, np.int64)
-    nsk = np.zeros(N, np.int64)
-    if lib.phase_compare_core(bp, len(bp), bq, len(bq), M, N,
-                              np.ascontiguousarray(ap0, np.int32),
-                              np.ascontiguousarray(aq0, np.int32),
-                              out4, nss, nsk) < 0:
-        raise ValueError("phase_compare_core: corrupt pack3 stream")
-    return (int(out4[0]), int(out4[1]), int(out4[2]), int(out4[3]),
-            nss, nsk)
-
-
-def gtcompare_core(yzp: bytes, yzq: bytes, M: int, N: int,
-                   ap0: np.ndarray, aq0: np.ndarray, rf: np.ndarray,
-                   ii: np.ndarray, fbound: np.ndarray):
-    """genotypeCompare counting (pbwtImpute.c:1398-1438) as one streaming
-    C pass over both packed panels.  Returns (n (17, 9), ns9 (M//2, 9),
-    fsum, nsum, isum, ni) or None."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    bp = np.frombuffer(bytes(yzp), np.uint8)
-    bq = np.frombuffer(bytes(yzq), np.uint8)
-    nb = len(fbound)
-    n = np.zeros(nb * 9, np.int64)
-    ns9 = np.zeros((M // 2) * 9, np.int64)
-    fsum = np.zeros(nb)
-    nsum = np.zeros(nb, np.int64)
-    isum = np.zeros(nb)
-    ni = np.zeros(nb, np.int64)
-    rc = lib.gtcompare_core(bp, len(bp), bq, len(bq), M, N,
-                            np.ascontiguousarray(ap0, np.int32),
-                            np.ascontiguousarray(aq0, np.int32),
-                            np.ascontiguousarray(rf, np.float64),
-                            np.ascontiguousarray(ii, np.float64),
-                            np.ascontiguousarray(fbound, np.float64), nb,
-                            n, ns9, fsum, nsum, isum, ni)
-    if rc < 0:
-        raise ValueError("gtcompare_core: corrupt pack3 stream")
-    return (n.reshape(nb, 9), ns9.reshape(M // 2, 9), fsum, nsum, isum,
-            ni)
-
-
 def build_reverse_core(yz: bytes, M: int, N: int, aFend: np.ndarray):
     """pbwtBuildReverse as one C pass (offsets skim + backward stream +
     fused gather/encode/partition emit).  Returns (zz bytes, aRend) or
@@ -597,107 +257,6 @@ def build_reverse_core(yz: bytes, M: int, N: int, aFend: np.ndarray):
         if n <= cap:
             return zz[:n].tobytes(), arend
         cap = int(n)
-
-
-def buckets_sort_start(sj: np.ndarray, ss: np.ndarray, se: np.ndarray,
-                       seg_off: np.ndarray) -> bool:
-    """Sort already-bucketed (donor, start, end) runs by start, in place
-    (one C pass).  Returns False when the native library is missing."""
-    lib = get_lib()
-    if lib is None:
-        return False
-    T = len(seg_off) - 1
-    if lib.buckets_sort_start(sj, ss, se,
-                              np.ascontiguousarray(seg_off, np.int64),
-                              T) < 0:
-        raise MemoryError("buckets_sort_start")
-    return True
-
-
-def impute_vote_emit(yzref: bytes, Mref: int, Nref: int, a_ref0: np.ndarray,
-                     segments: np.ndarray, seg_off: np.ndarray, T: int,
-                     kold: np.ndarray, zmiss: bytes | None = None,
-                     miss_off: np.ndarray | None = None,
-                     seg_cols=None):
-    """The whole referenceImpute3 core (pbwtImpute.c:1184-1251) as one
-    streaming C pass with O(Mref + T) live memory: decode panel column →
-    natural scatter → weighted vote per target → pack3 + dosage-RLE emit →
-    advance both prefix arrays.  segments (n, 4) [j, j_ref, start, end]
-    must be sorted by (j, start).
-
-    Self-impute mode (imputeMissing, pbwtImpute.c:1323-1371): pass the
-    panel's missing stream (zmiss + per-site offsets, offset 0 = none);
-    complete entries copy straight through and only missing entries vote.
-
-    Returns (yz, zdosage, dos_off, ref_freq, psums, xsums, pxsums, nvote,
-    n_conflicts, a_tgt_end) or None when the native library is missing."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    buf = np.frombuffer(bytes(yzref), np.uint8)
-    a_ref = np.ascontiguousarray(a_ref0, np.int32).copy()
-    a_tgt = np.arange(T, dtype=np.int32)
-    first = seg_off[:-1].astype(np.int32)
-    self_mode = 1 if miss_off is not None else 0
-    zm = np.frombuffer(zmiss if zmiss else b"\x00", np.uint8)
-    mo = (np.ascontiguousarray(miss_off, np.int64) if miss_off is not None
-          else np.zeros(Nref, np.int64))
-    yz_cap = Nref * (T + 8) + 16
-    zdos_cap = Nref * (T + T // 4 + 16) + 16
-    yz = pooled(yz_cap, "impute_emit_yz")
-    zdos = pooled(zdos_cap, "impute_emit_zdos")
-    dos_off = np.empty(Nref, np.int64)
-    ref_freq = np.empty(Nref, np.float64)
-    psums = np.empty(Nref, np.float64)
-    xsums = np.empty(Nref, np.float64)
-    pxsums = np.empty(Nref, np.float64)
-    nvote = np.empty(Nref, np.int64)
-    lens = np.empty(2, np.int64)
-    if seg_cols is not None:
-        jr_c, s_c, e_c = seg_cols
-    else:
-        jr_c = np.ascontiguousarray(segments[:, 1], np.int32)
-        s_c = np.ascontiguousarray(segments[:, 2], np.int32)
-        e_c = np.ascontiguousarray(segments[:, 3], np.int32)
-    conflicts = lib.impute_vote_emit(
-        buf, len(buf), Mref, Nref, a_ref, jr_c, s_c, e_c,
-        np.ascontiguousarray(seg_off, np.int64), first, T, a_tgt, kold,
-        self_mode, zm, len(zm), mo,
-        yz, yz_cap, zdos, zdos_cap, dos_off, ref_freq,
-        psums, xsums, pxsums, nvote, lens)
-    if conflicts < 0:
-        raise ValueError("impute_vote_emit: corrupt stream or overflow")
-    return (yz[:lens[0]].tobytes(), zdos[:lens[1]].tobytes(), dos_off,
-            ref_freq, psums, xsums, pxsums, nvote, int(conflicts), a_tgt)
-
-
-def impute_emit(x_all: np.ndarray, dos_all: np.ndarray, a0: np.ndarray):
-    """referenceImpute3 output stage (pbwtImpute.c:1235-1249): per site,
-    gather to sort order, pack3 the alleles, RLE the quantised dosages,
-    advance the prefix array.  x_all/dos_all are site-major (Nref, T).
-
-    Returns (yz bytes, zdosage bytes, dosage_offsets int64, a_end) or
-    None when the native library is unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    Nref, T = x_all.shape
-    x_all = np.ascontiguousarray(x_all, np.uint8)
-    dos_all = np.ascontiguousarray(dos_all, np.float64)
-    a = np.ascontiguousarray(a0, np.int32).copy()
-    yz_cap = Nref * (T + 8) + 16
-    # dosage worst case: <=1 byte/element for short runs; long zero runs
-    # add <=3 escape bytes each and there are <= T/32 of those per site
-    zdos_cap = Nref * (T + T // 4 + 16) + 16
-    yz = pooled(yz_cap, "impute_emit_yz")
-    zdos = pooled(zdos_cap, "impute_emit_zdos")
-    dos_off = np.empty(Nref, np.int64)
-    lens = np.empty(2, np.int64)
-    rc = lib.impute_emit(x_all.reshape(-1), dos_all.reshape(-1), T, Nref, a,
-                         yz, yz_cap, zdos, zdos_cap, dos_off, lens)
-    if rc < 0:
-        raise AssertionError("impute_emit overflowed its worst-case bound")
-    return yz[:lens[0]].tobytes(), zdos[:lens[1]].tobytes(), dos_off, a
 
 
 def decode_cols(yz: bytes, ncols: int, M: int):
@@ -725,106 +284,6 @@ def encode_cols(Y: np.ndarray):
     offsets = np.empty(ncols + 1, np.int64)
     n = lib.p3_encode_cols(Y.reshape(-1), ncols, M, out, offsets)
     return out[:n].tobytes(), offsets
-
-
-def max_within(Ysort: np.ndarray, a0: np.ndarray):
-    """All set-maximal within-panel match reports as an (n, 4) int64 array
-    in reference scan order, or None."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    N, M = Ysort.shape
-    Ysort = np.ascontiguousarray(Ysort, np.uint8)
-    a0 = np.ascontiguousarray(a0, np.int32)
-    cap = max(4096, 8 * M)
-    while True:
-        out = np.empty((cap, 4), np.int64)
-        n = lib.max_within(Ysort.reshape(-1), M, N, a0, out.reshape(-1), cap)
-        if n <= cap:
-            return out[:n]
-        cap = n
-
-
-def long_within(Ysort: np.ndarray, T: int, a0: np.ndarray):
-    """Long-match (> T) reports as an (n, 4) int64 array in reference scan
-    order, or None."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    N, M = Ysort.shape
-    Ysort = np.ascontiguousarray(Ysort, np.uint8)
-    a0 = np.ascontiguousarray(a0, np.int32)
-    cap = max(4096, 8 * M)
-    while True:
-        out = np.empty((cap, 4), np.int64)
-        n = lib.long_within(Ysort.reshape(-1), M, N, T, a0,
-                            out.reshape(-1), cap)
-        if n <= cap:
-            return out[:n]
-        cap = n
-
-
-def max_within_bucketed(yz: bytes, M: int, N: int, a0: np.ndarray):
-    """Two-pass maxWithin straight into per-recipient buckets: returns
-    (seg_j, seg_s, seg_e, seg_off) in the reference's per-recipient report
-    order without ever holding the (n, 4) int64 row set - peak memory is
-    3n int32 (the painting consumers' own layout) at the cost of a second
-    streaming pass over the pack3 bytes.  None when the library is
-    unavailable."""
-    lib = get_lib()
-    if lib is None or not hasattr(lib, "max_within_bucket_count"):
-        return None
-    z = np.frombuffer(yz, np.uint8)
-    a0 = np.ascontiguousarray(a0, np.int32)
-    off = np.zeros(M + 1, np.int64)
-    n = lib.max_within_bucket_count(z, len(z), M, N, a0, off)
-    if n < 0:
-        return None
-    sj = pooled_view((max(n, 1),), np.int32, "paint:sj")
-    ss = pooled_view((max(n, 1),), np.int32, "paint:ss")
-    se = pooled_view((max(n, 1),), np.int32, "paint:se")
-    n2 = lib.max_within_bucket_fill(z, len(z), M, N, a0, sj, ss, se, off)
-    if n2 != n:
-        return None
-    return sj[:n], ss[:n], se[:n], off
-
-
-def max_within_packed(yz: bytes, M: int, N: int, a0: np.ndarray):
-    """max_within streaming the pack3 bytes directly (O(M) live memory,
-    like the reference cursor model); (n, 4) int64 rows or None."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    z = np.frombuffer(yz, np.uint8)
-    a0 = np.ascontiguousarray(a0, np.int32)
-    cap = max(4096, 8 * M)
-    while True:
-        out = pooled_view((cap, 4), np.int64, "rows:max_within")
-        n = lib.max_within_packed(z, len(z), M, N, a0, out.reshape(-1), cap)
-        if n < 0:
-            return None
-        if n <= cap:
-            return out[:n]
-        cap = n
-
-
-def long_within_packed(yz: bytes, T: int, M: int, N: int, a0: np.ndarray):
-    """long_within streaming the pack3 bytes; (n, 4) int64 rows or None."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    z = np.frombuffer(yz, np.uint8)
-    a0 = np.ascontiguousarray(a0, np.int32)
-    cap = max(4096, 8 * M)
-    while True:
-        out = pooled_view((cap, 4), np.int64, "rows:long_within")
-        n = lib.long_within_packed(z, len(z), M, N, T, a0,
-                                   out.reshape(-1), cap)
-        if n < 0:
-            return None
-        if n <= cap:
-            return out[:n]
-        cap = n
 
 
 def sweep_match_packed(yzp: bytes, M: int, yzq: bytes, Q: int, N: int,
@@ -876,29 +335,6 @@ def _stdout_fd(stream) -> int:
         return stream.fileno()
     except (OSError, AttributeError, ValueError):
         return -1
-
-
-def max_within_print(yz: bytes, M: int, N: int, a0: np.ndarray, fd: int):
-    """Stream MATCH lines for all set-maximal matches straight to fd
-    (never materialising the row set); returns report count or None."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    z = np.frombuffer(yz, np.uint8)
-    a0 = np.ascontiguousarray(a0, np.int32)
-    n = lib.max_within_print(z, len(z), M, N, a0, fd)
-    return None if n < 0 else n
-
-
-def long_within_print(yz: bytes, T: int, M: int, N: int, a0: np.ndarray,
-                      fd: int):
-    lib = get_lib()
-    if lib is None:
-        return None
-    z = np.frombuffer(yz, np.uint8)
-    a0 = np.ascontiguousarray(a0, np.int32)
-    n = lib.long_within_print(z, len(z), M, N, T, a0, fd)
-    return None if n < 0 else n
 
 
 def sweep_match_print(yzp: bytes, M: int, yzq: bytes, Q: int, N: int,

@@ -157,6 +157,34 @@ def _native_case(name, native):
         assert np.array_equal(np.concatenate([first[0], rest[0]]), X.T)
         return tuple(v if isinstance(v, np.ndarray) else np.int64(v)
                      for v in (*first, *rest))
+    if name == "decode_cols":
+        return native.decode_cols(yz, 50, 300)
+    if name == "col_counts":
+        return native.col_counts(yz, 300, 50)
+    if name == "build_pbwt_chunk":
+        a = a0.copy()
+        return native.build_pbwt_chunk(np.ascontiguousarray(X.T[:20]), a), a
+    if name == "pack_advance":
+        a = a0.copy()
+        return native.pack_advance(Y[0], a), a
+    if name == "select_repack":
+        keep = (np.arange(50) % 3 != 1).astype(np.uint8)
+        return native.select_repack(yz, 300, 50, keep, a0)
+    if name == "subsample_repack":
+        select = np.random.RandomState(12).permutation(300)[:120]
+        return native.subsample_repack(yz, 300, 50, select.astype(np.int64),
+                                       a0)
+    if name == "build_reverse_core":
+        a_end = native.build_pbwt(np.ascontiguousarray(X.T), a0)[1]
+        return native.build_reverse_core(yz, 300, 50, a_end)
+    if name in ("sweep_match", "sweep_match_packed"):
+        Xq = _panel(13, 20, 50)
+        Yq = _sorted_columns(Xq)
+        aq0 = np.arange(20, dtype=np.int32)
+        if name == "sweep_match":
+            return native.sweep_match(Y, a0, Yq, aq0).copy()
+        yzq = ref_native.encode_cols(Yq)[0]
+        return native.sweep_match_packed(yz, 300, yzq, 20, 50, a0, aq0).copy()
     assert name == "write_match_rows"
     rows = np.random.RandomState(9).randint(0, 10**6, size=(500, 4))
     rows[::7, 3] = rows[::7, 2]               # empty matches are not printed
@@ -167,7 +195,11 @@ def _native_case(name, native):
 
 @pytest.mark.parametrize("name", ["encode_cols", "natural_cols",
                                   "transpose_u8", "build_pbwt",
-                                  "write_match_rows"])
+                                  "write_match_rows", "decode_cols",
+                                  "col_counts", "build_pbwt_chunk",
+                                  "pack_advance", "select_repack",
+                                  "subsample_repack", "build_reverse_core",
+                                  "sweep_match", "sweep_match_packed"])
 def test_native_entries(name):
     assert port_native.get_lib() is not None, "the C runtime did not build"
     got, want = _native_case(name, port_native), _native_case(name, ref_native)
@@ -181,7 +213,13 @@ def test_native_library_is_the_ports_own():
         ROOT, "pbwt_tpu_torch", "csrc", "pbwt_native.c"))
     assert port_native._SO.startswith(os.path.join(ROOT, "build",
                                                    "pbwt_tpu_torch"))
-    assert port_native.get_lib()._name == port_native._SO
+    lib = port_native.get_lib()
+    assert lib._name == port_native._SO
+    with open(port_native._SRC) as f:
+        exported = set(re.findall(r"^EXPORT \w+ (\w+)\(", f.read(), re.M))
+    with open(port_native.__file__) as f:
+        bound = set(re.findall(r"lib\.(\w+)\.argtypes", f.read()))
+    assert exported == bound and all(hasattr(lib, n) for n in bound)
 
 
 # --------------------------------------------------------------- pbwtfile
