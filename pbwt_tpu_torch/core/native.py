@@ -3,7 +3,9 @@
 Compiled on first use with the system C compiler into
 ``build/pbwt_tpu_torch/`` beside the package; every caller falls back to the
 numpy implementations when the toolchain is unavailable, so the native layer
-is a pure accelerator, never a correctness dependency.
+is a pure accelerator, never a correctness dependency. The fall is not
+silent: the first ``get_lib()`` that returns None warns with the compiler's
+output, which stays in ``build_log``.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import warnings
 
 import numpy as np
 
@@ -21,24 +24,33 @@ _SO = os.path.join(os.path.dirname(_PKG), "build", "pbwt_tpu_torch",
 
 _lib = None
 _tried = False
+build_log = ""      # why the library is missing, once get_lib() returned None
+
+
+def compiler() -> str:
+    """The C compiler the runtime is built with: $CC, else cc."""
+    return os.environ.get("CC", "cc")
 
 
 def _compile() -> bool:
     """Build _SO under a name of this process's own, then move it into
     place, so that processes racing on a first use each load a whole
     library."""
-    cc = os.environ.get("CC", "cc")
+    global build_log
     tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [cc, "-O3", "-march=native", "-shared", "-fPIC",
+    cmd = [compiler(), "-O3", "-march=native", "-shared", "-fPIC",
            "-o", tmp, _SRC]
     try:
         os.makedirs(os.path.dirname(_SO), exist_ok=True)
         res = subprocess.run(cmd, capture_output=True, timeout=300)
         if res.returncode != 0:
+            build_log = (" ".join(cmd) + "\n"
+                         + (res.stdout + res.stderr).decode(errors="replace"))
             return False
         os.replace(tmp, _SO)
         return True
-    except (OSError, subprocess.TimeoutExpired):
+    except (OSError, subprocess.TimeoutExpired) as e:
+        build_log = f"{' '.join(cmd)}\n{e}"
         return False
     finally:
         if os.path.exists(tmp):
@@ -46,8 +58,22 @@ def _compile() -> bool:
 
 
 def get_lib():
-    """Load (building if needed) the native library, or None."""
-    global _lib, _tried
+    """Load (building if needed) the native library, or None; the first
+    None comes with a warning that says why, since the numpy routes that
+    take over are far slower."""
+    lib = _load()
+    if lib is None and build_log and not _warned:
+        _warned.append(True)
+        warnings.warn("pbwt_tpu_torch: no host C runtime, the numpy routes "
+                      f"take over: {build_log}", RuntimeWarning, stacklevel=2)
+    return lib
+
+
+_warned: list[bool] = []
+
+
+def _load():
+    global _lib, _tried, build_log
     if _lib is not None or _tried:
         return _lib
     _tried = True
@@ -55,10 +81,14 @@ def get_lib():
         if (not os.path.exists(_SO)
                 or (os.path.exists(_SRC)
                     and os.path.getmtime(_SRC) > os.path.getmtime(_SO))):
-            if not os.path.exists(_SRC) or not _compile():
+            if not os.path.exists(_SRC):
+                build_log = f"{_SRC} is missing"
+                return None
+            if not _compile():
                 return None
         lib = ctypes.CDLL(_SO)
-    except OSError:
+    except OSError as e:
+        build_log = f"loading {_SO}: {e}"
         return None
 
     u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")

@@ -1,55 +1,74 @@
-// Stable PBWT column partitions on Hopper: kernels K1 and K2 of pbwt_tpu_torch.
+// Stable PBWT column partitions on Hopper: kernels K1 and K2 of pbwt_tpu_torch,
+// each one persistent launch over many sites.
 //
 // K1 k1_group_partition replaces the TPU group kernels of
 // pbwt_tpu/ops/partition_pallas.py (group_partition_noa, group_partition_noa2,
 // group_partition) together with the XLA two-sort gather and the stable u32
-// sort around them (ops/build.py:_sort_gather, build_scan_pallas_noa*). For one
-// 32-site group it gathers the natural-order words into the current sort order
-// (w = w_nat[a]) and runs 32 stable two-way partitions of (a, w) by bit s of w,
-// emitting each site's sorted column packed 32 rows per word (a warp ballot:
-// bit i%32 of word i/32) and the site's zero count.
+// sort around them (ops/build.py:_sort_gather, build_scan_pallas_noa*), and the
+// per-group loop of build_scan_grouped. For every site of every 32-site group
+// it partitions the prefix array a stably by the site's bit, and emits the
+// site's sorted column packed 32 rows per word (bit i%32 of word i/32) and its
+// zero count. The words stay in natural haplotype order: site 32t+s of the row
+// at sort position i is bit s of W[t][a[i]] (or of a carried plane, regathered
+// at s = 0, when the caller gives one).
 //
 // K2 k2_partition_ad_step replaces partition_ad_step and
-// partition_ad_step_blocked: one site's stable partition of (a, d, w) by bit s,
-// the divergence update of pbwtCursorForwardsAD (pbwtCore.c:485-508) as two
-// segmented running maxima seeded with k+1 followed by d[0] = k+2, the exclusive
-// zero-rank table u and the zero count, over any row count.
+// partition_ad_step_blocked and the per-site scan of match_jax.panel_trajectory:
+// per site the stable partition of (a, d) by the site's bit, the divergence
+// update of pbwtCursorForwardsAD (pbwtCore.c:485-508) as two segmented running
+// maxima seeded with k+1 followed by d[0] = k+2, the exclusive zero-rank table
+// u and the zero count. It reads and writes the trajectory tables themselves:
+// site k reads A[k] and D[k-1] and writes A[k+1], D[k], U[k], C[k].
 //
-// Bound on the H100: both are memory-bound integer passes. Per site K1 reads the
-// word plane twice and moves (a, w) once, about 16 B per row; K2 reads (d, w)
-// twice and moves (a, d, w, u), about 28 B per row. There is no arithmetic to
-// speak of, and at the slice's widths (65k-100k rows, 0.3-3 MB a plane) every
-// plane lives in the 50 MB L2, so a site costs a few microseconds of launch and
-// synchronisation before it costs bandwidth.
+// Bound on the H100: the sites are a chain (site k+1 reads the order that site
+// k scattered), and every plane of one site (0.3-3 MB at 65k-100k rows) lives
+// in the 50 MB L2. The bytes (12-16 B a row a site) would take a fraction of a
+// microsecond; what a site costs is latency: a load of the tile from L2, one
+// exchange of tile summaries between the blocks, the scattered stores, and one
+// grid barrier. Tensor cores, TMA and shared-memory tiling have nothing to do.
 //
-// Design: where the TPU kernels build ranks with log-shift rolls and matmuls
-// inside one core's VMEM, here blocks run in parallel with nothing carried
-// between them, so every site is three launches: a per-block summary, a
-// one-block exclusive scan of the block summaries, and a scatter that rebuilds
-// each block's ranks from its carry-in. Ranks within a warp come from
-// __ballot_sync and __popc (K1); K2 gives each thread eight contiguous rows and
-// scans the (zeros, p reset seen, p max since reset, q reset seen, q max since
-// reset) summary across threads and blocks, so the segmented maxima cross block
-// boundaries exactly. Offsets are int; the callers bound the row count below
-// 2^31. The first version is simple and right; fusing the 32 sites of a group
-// into fewer launches is later work.
+// Design: one cooperative launch whose blocks are all resident
+// (occupancy x SMs caps the grid) steps through the sites together. Each block
+// owns the row tiles b, b+G, b+2G, ... for the whole launch. Per site and tile:
+//   1. load the rows once (16-byte loads, eight/four/two contiguous rows a
+//      thread), summarise them (zeros; for K2 also "reset seen" and "maximum
+//      since the reset" of the two divergence scans), scan the thread summaries
+//      with warp shuffles, and publish the tile's summary as one 16-byte word
+//      that carries the site's number as its stamp, so no fence stands between
+//      data and flag and nothing is reset between sites;
+//   2. wait for the stamps of the other tiles and combine their summaries in
+//      tile order (combine is associative, not commutative): the total gives
+//      the site's zero count, which every scatter needs, the part before the
+//      own tile its carry-in. There is no scan kernel and no second pass over
+//      the rows: with one tile a block they stay in registers;
+//   3. scatter from registers: zeros to their rank, ones after the count;
+//   4. one grid barrier (an atomic counter that only grows) before the next
+//      site's loads.
+// Every spin is capped and reports through an error word that the wrapper
+// reads, so a fault is an exception, not a hang. Loads of planes that other
+// blocks wrote go to L2 (__ldcg). Row offsets are int (n < 2^31 - 4096);
+// offsets into the tables are size_t.
 
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstdint>
 
 namespace {
 
-constexpr int K1_THREADS = 1024;  // one row per thread
-constexpr int K2_THREADS = 256;
-constexpr int K2_ITEMS = 8;       // contiguous rows per thread
-constexpr int K2_TILE = K2_THREADS * K2_ITEMS;
-constexpr int SCAN_THREADS = 1024;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int MIN_ITEMS = 2;       // fewest contiguous rows a thread
+constexpr int HEADER_INTS = 8;     // scratch: barrier counter (2 ints), error word, pad
+constexpr int REC_INTS = 4;        // a published tile summary, stamp included
+constexpr int SPIN_CAP = 1 << 22;  // loads of a flag before a wait gives up
+constexpr int ERR_BARRIER = 1, ERR_FLAG = 2;
+constexpr int MAX_SITES = (1 << 29) - 1;  // a stamp has 30 bits of a summary's last word
 
 // Summary of a run of rows in sort order: its zero count and, for each of the
 // divergence scans, whether the run holds a reset and the running maximum of
 // the seed since the last one. The p scan restarts after a zero, the q scan
-// after a one (pbwtCore.c:489-503).
+// after a one (pbwtCore.c:489-503). K1 uses the zero count alone.
 struct Sum {
   int z;
   int ph, pt;
@@ -69,257 +88,513 @@ __device__ __forceinline__ Sum combine(const Sum& a, const Sum& b) {
   return r;
 }
 
-// Exclusive scan of per-block summaries in one block; writes the zero total.
-__global__ void scan_blocks(const Sum* __restrict__ in, Sum* __restrict__ excl, int nb,
-                            int* __restrict__ total_z) {
-  __shared__ Sum tile[SCAN_THREADS];
-  __shared__ Sum carry;
-  if (threadIdx.x == 0) carry = sum_identity();
+__device__ __forceinline__ Sum shfl_up(const Sum& v, int off) {
+  Sum r;
+  r.z = __shfl_up_sync(0xffffffffu, v.z, off);
+  r.ph = __shfl_up_sync(0xffffffffu, v.ph, off);
+  r.pt = __shfl_up_sync(0xffffffffu, v.pt, off);
+  r.qh = __shfl_up_sync(0xffffffffu, v.qh, off);
+  r.qt = __shfl_up_sync(0xffffffffu, v.qt, off);
+  return r;
+}
+
+// Ordered scan over the block's threads: returns this thread's exclusive
+// prefix, *total the combination of all. Every thread of the block calls it.
+__device__ Sum block_scan(const Sum& mine, Sum* sh_warp, Sum* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Sum inc = mine;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    Sum o = shfl_up(inc, off);
+    if (lane >= off) inc = combine(o, inc);
+  }
+  Sum ex = shfl_up(inc, 1);
+  if (lane == 0) ex = sum_identity();
+  __syncthreads();  // the last call's readers of sh_warp are done
+  if (lane == 31) sh_warp[warp] = inc;
   __syncthreads();
-  for (int base = 0; base < nb; base += SCAN_THREADS) {
-    int i = base + threadIdx.x;
-    if (i < nb) tile[threadIdx.x] = in[i];
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      Sum c = carry;
-      int m = min(SCAN_THREADS, nb - base);
-      for (int j = 0; j < m; ++j) {
-        Sum v = tile[j];
-        tile[j] = c;
-        c = combine(c, v);
+  Sum pre = sum_identity(), tot = sum_identity();
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    Sum x = sh_warp[w];
+    if (w < warp) pre = combine(pre, x);
+    tot = combine(tot, x);
+  }
+  *total = tot;
+  return combine(pre, ex);
+}
+
+// A published tile summary is one 16-byte word, written and read whole (one
+// st.v4 / ld.v4, a single transaction on this hardware), so the stamp arrives
+// with the data and no fence or second read stands between them:
+// {z, pt, qt, stamp << 2 | ph << 1 | qh}. The stamp is the site's number in
+// the launch plus one; the scratch starts zeroed.
+__device__ __forceinline__ void publish(int* recs, int j, const Sum& v, int stamp) {
+  int* r = recs + (size_t)j * REC_INTS;
+  asm volatile("st.volatile.global.v4.s32 [%0], {%1, %2, %3, %4};" ::"l"(r), "r"(v.z), "r"(v.pt),
+               "r"(v.qt), "r"((stamp << 2) | (v.ph << 1) | v.qh)
+               : "memory");
+}
+
+// Wait for tile j's summary of this site. A wait that gives up (its own cap,
+// or the error word another wait set) sets *bad.
+__device__ __forceinline__ Sum wait_record(int* recs, int j, int stamp, int* err, bool* bad) {
+  const int* r = recs + (size_t)j * REC_INTS;
+  int x, y, z, w, spins = 0;
+  for (;;) {
+    asm volatile("ld.volatile.global.v4.s32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(x), "=r"(y), "=r"(z), "=r"(w)
+                 : "l"(r)
+                 : "memory");
+    if ((w >> 2) == stamp) break;
+    if (++spins > SPIN_CAP) {
+      atomicExch(err, ERR_FLAG);
+      *bad = true;
+      break;
+    }
+    if ((spins & 255) == 0 && *reinterpret_cast<volatile int*>(err)) {
+      *bad = true;
+      break;
+    }
+  }
+  return Sum{x, (w >> 1) & 1, y, w & 1, z};
+}
+
+// Combination, in tile order, of the published summaries lo..hi-1 (returned to
+// every thread), and of lo..want-1 into *at_want (lo <= want <= hi). *failed
+// is set, for the whole block alike, when a wait gave up.
+__device__ Sum scan_records(int* recs, int lo, int hi, int want, int stamp, int* err,
+                            Sum* sh_warp, Sum* sh_at, Sum* at_want, bool* failed) {
+  Sum carry = sum_identity();
+  bool bad = false;
+  for (int base = lo; base < hi; base += THREADS) {
+    int idx = base + threadIdx.x;
+    Sum v = idx < hi ? wait_record(recs, idx, stamp, err, &bad) : sum_identity();
+    Sum tot;
+    Sum ex = block_scan(v, sh_warp, &tot);
+    if (idx == want) *sh_at = combine(carry, ex);
+    carry = combine(carry, tot);
+  }
+  *failed = __syncthreads_or(bad);
+  *at_want = want < hi ? *sh_at : carry;
+  return carry;
+}
+
+// All blocks of the (resident) grid arrive; the counter only grows, and the
+// barrier after site r waits for (r+1) x blocks arrivals. Returns true, to
+// the whole block alike, when the wait gave up (its own cap, or the error
+// word another wait set).
+__device__ bool grid_barrier(unsigned long long* bar, unsigned long long target, int* err,
+                             int* sh_flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(bar, 1ull);
+    int spins = 0, bad = 0;
+    while (*reinterpret_cast<volatile unsigned long long*>(bar) < target) {
+      if (++spins > SPIN_CAP) {
+        atomicExch(err, ERR_BARRIER);
+        bad = 1;
+        break;
       }
-      carry = c;
+      if ((spins & 255) == 0 && *reinterpret_cast<volatile int*>(err)) {
+        bad = 1;
+        break;
+      }
     }
-    __syncthreads();
-    if (i < nb) excl[i] = tile[threadIdx.x];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *total_z = carry.z;
-}
-
-// ---------------------------------------------------------------- K1 ----
-
-__global__ void k1_gather(const int* __restrict__ w_nat, const int* __restrict__ a_in, int n,
-                          int* __restrict__ a_out, int* __restrict__ w_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    int ai = a_in[i];
-    a_out[i] = ai;
-    w_out[i] = w_nat[ai];
-  }
-}
-
-// Site s: emit the packed sorted column and the block's zero count.
-__global__ void k1_count(const int* __restrict__ w, int n, int s, unsigned* __restrict__ ycol,
-                         int rw, Sum* __restrict__ sums) {
-  __shared__ int warp_z[K1_THREADS / 32];
-  int i = blockIdx.x * K1_THREADS + threadIdx.x;
-  bool valid = i < n;
-  int key = valid ? (w[i] >> s) & 1 : 0;
-  unsigned ones = __ballot_sync(0xffffffffu, valid && key);
-  unsigned zeros = __ballot_sync(0xffffffffu, valid && !key);
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    if ((i >> 5) < rw) ycol[i >> 5] = ones;
-    warp_z[warp] = __popc(zeros);
+    __threadfence();
+    *sh_flag = bad;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    Sum r = sum_identity();
-    for (int j = 0; j < K1_THREADS / 32; ++j) r.z += warp_z[j];
-    sums[blockIdx.x] = r;
-  }
+  return *sh_flag != 0;
 }
 
-// Site s: stable scatter of (a, w); zeros first, ones after the count.
-__global__ void k1_scatter(const int* __restrict__ a, const int* __restrict__ w, int n, int s,
-                           const Sum* __restrict__ block_off, const int* __restrict__ count,
-                           int* __restrict__ a_out, int* __restrict__ w_out) {
-  __shared__ int warp_off[K1_THREADS / 32];
-  int i = blockIdx.x * K1_THREADS + threadIdx.x;
-  bool valid = i < n;
-  int wi = valid ? w[i] : 0;
-  int key = (wi >> s) & 1;
-  unsigned zeros = __ballot_sync(0xffffffffu, valid && !key);
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_off[warp] = __popc(zeros);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int acc = 0;
-    for (int j = 0; j < K1_THREADS / 32; ++j) {
-      int v = warp_off[j];
-      warp_off[j] = acc;
-      acc += v;
-    }
-  }
-  __syncthreads();
-  if (!valid) return;
-  int zr = block_off[blockIdx.x].z + warp_off[warp] + __popc(zeros & ((1u << lane) - 1u));
-  int dst = key ? *count + (i - zr) : zr;
-  a_out[dst] = a[i];
-  w_out[dst] = wi;
-}
-
-// ---------------------------------------------------------------- K2 ----
-
-__device__ __forceinline__ int seed_at(const int* __restrict__ d, int i, int kk) {
-  int v = d[i];
-  return i == 0 ? max(v, kk + 1) : v;
-}
-
-// One thread's summary of its K2_ITEMS rows starting at i0.
-__device__ __forceinline__ Sum k2_thread_sum(const int* __restrict__ d, const int* __restrict__ w,
-                                             int n, int s, int kk, int i0) {
-  Sum r = sum_identity();
-  for (int t = 0; t < K2_ITEMS; ++t) {
-    int i = i0 + t;
-    if (i >= n) break;
-    int v = seed_at(d, i, kk);
-    r.pt = max(r.pt, v);
-    r.qt = max(r.qt, v);
-    if ((w[i] >> s) & 1) {
-      r.qh = 1;
-      r.qt = INT_MIN;
+// ITEMS contiguous rows from a plane another block may have written: from L2,
+// as 16-byte (8-byte at two rows) loads where the plane's row is aligned.
+template <int ITEMS>
+__device__ __forceinline__ void load_rows(const int* src, int i0, int nvalid, int (&out)[ITEMS]) {
+  constexpr int V = ITEMS >= 4 ? 4 : 2;
+  if (nvalid == ITEMS && (reinterpret_cast<uintptr_t>(src) & (4 * V - 1)) == 0) {
+    if constexpr (ITEMS >= 4) {
+#pragma unroll
+      for (int q = 0; q < ITEMS / 4; ++q) {
+        int4 x = __ldcg(reinterpret_cast<const int4*>(src + i0) + q);
+        out[4 * q] = x.x;
+        out[4 * q + 1] = x.y;
+        out[4 * q + 2] = x.z;
+        out[4 * q + 3] = x.w;
+      }
     } else {
-      r.z++;
-      r.ph = 1;
-      r.pt = INT_MIN;
+      int2 x = __ldcg(reinterpret_cast<const int2*>(src + i0));
+      out[0] = x.x;
+      out[1] = x.y;
     }
+  } else {
+#pragma unroll
+    for (int t = 0; t < ITEMS; ++t) out[t] = t < nvalid ? __ldcg(src + i0 + t) : 0;
+  }
+}
+
+template <int ITEMS>
+__device__ __forceinline__ void store_rows(int* dst, int i0, int nvalid, const int (&v)[ITEMS]) {
+  constexpr int V = ITEMS >= 4 ? 4 : 2;
+  if (nvalid == ITEMS && (reinterpret_cast<uintptr_t>(dst) & (4 * V - 1)) == 0) {
+    if constexpr (ITEMS >= 4) {
+#pragma unroll
+      for (int q = 0; q < ITEMS / 4; ++q)
+        reinterpret_cast<int4*>(dst + i0)[q] =
+            make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    } else {
+      *reinterpret_cast<int2*>(dst + i0) = make_int2(v[0], v[1]);
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < ITEMS; ++t)
+      if (t < nvalid) dst[i0 + t] = v[t];
+  }
+}
+
+struct Params {
+  int n, nsites;
+  int s0;   // site r of the launch is bit (s0+r)%32 of word group (s0+r)/32
+  int kk0;  // and global site kk0+r (the divergence values)
+  // Site r reads a (and d) from in0 at r = 0, else from what site r-1 wrote:
+  // plane (r % a_mod) of out, planes a_stride ints apart (a_mod = 2: ping-pong
+  // scratch; a_mod = INT_MAX: the rows of a table).
+  const int* a_in0;
+  int* a_out;
+  const int* d_in0;
+  int* d_out;
+  size_t a_stride;
+  int a_mod;
+  // Words: carried in sort order through the two planes of w_pp (w_in0 enters
+  // site 0) when w_pp is given, and taken from the natural-order planes w_nat
+  // through a where there is nothing carried or a new group begins.
+  const int* w_in0;
+  int* w_pp;
+  size_t w_stride;
+  const int* w_nat;
+  size_t wn_stride;
+  int* u_out;  // K2: table of exclusive zero ranks, rows a_stride apart
+  unsigned* ycols;  // K1: packed sorted columns, rw words a site
+  int rw;
+  int* counts;
+  int* scratch;
+};
+
+template <bool AD, int ITEMS>
+struct Tile {
+  int a[ITEMS], d[AD ? ITEMS : 1], w[ITEMS];
+  unsigned keys;  // bit t: the site's bit of row t (0 beyond nvalid)
+  int i0, nvalid;
+};
+
+template <bool AD, int ITEMS>
+__device__ __forceinline__ void load_tile(Tile<AD, ITEMS>& t, int j, int n, int s, int kk,
+                                          const int* a_src, const int* d_src, const int* w_src,
+                                          const int* w_gat) {
+  t.i0 = j * (THREADS * ITEMS) + threadIdx.x * ITEMS;
+  t.nvalid = min(max(n - t.i0, 0), ITEMS);
+  load_rows<ITEMS>(a_src, t.i0, t.nvalid, t.a);
+  if constexpr (AD) {
+    load_rows<ITEMS>(d_src, t.i0, t.nvalid, t.d);
+    if (t.i0 == 0 && t.nvalid > 0) t.d[0] = max(t.d[0], kk + 1);
+  }
+  if (w_gat) {
+#pragma unroll
+    for (int q = 0; q < ITEMS; ++q) t.w[q] = q < t.nvalid ? __ldg(w_gat + t.a[q]) : 0;
+  } else {
+    load_rows<ITEMS>(w_src, t.i0, t.nvalid, t.w);
+  }
+  t.keys = 0;
+#pragma unroll
+  for (int q = 0; q < ITEMS; ++q)
+    if (q < t.nvalid) t.keys |= (unsigned)((t.w[q] >> s) & 1) << q;
+}
+
+template <bool AD, int ITEMS>
+__device__ __forceinline__ Sum thread_sum(const Tile<AD, ITEMS>& t) {
+  Sum r = sum_identity();
+  if constexpr (AD) {
+#pragma unroll
+    for (int q = 0; q < ITEMS; ++q) {
+      if (q < t.nvalid) {
+        int v = t.d[q];
+        r.pt = max(r.pt, v);
+        r.qt = max(r.qt, v);
+        if ((t.keys >> q) & 1) {
+          r.qh = 1;
+          r.qt = INT_MIN;
+        } else {
+          r.z++;
+          r.ph = 1;
+          r.pt = INT_MIN;
+        }
+      }
+    }
+  } else {
+    r.z = t.nvalid - __popc(t.keys);
   }
   return r;
 }
 
-// Hillis-Steele scan of the block's thread summaries; returns the exclusive
-// prefix of this thread and the block total.
-__device__ Sum block_scan(Sum mine, Sum* sh, Sum* total) {
-  int t = threadIdx.x;
-  sh[t] = mine;
-  __syncthreads();
-  for (int off = 1; off < K2_THREADS; off <<= 1) {
-    Sum v = sh[t];
-    if (t >= off) v = combine(sh[t - off], v);
-    __syncthreads();
-    sh[t] = v;
-    __syncthreads();
-  }
-  *total = sh[K2_THREADS - 1];
-  return t ? sh[t - 1] : sum_identity();
-}
+// One persistent grid over p.nsites chained sites; see the file's header.
+template <bool AD, int ITEMS>
+__global__ void __launch_bounds__(THREADS) partition_sites(const Params p) {
+  constexpr int TILE = THREADS * ITEMS;
+  __shared__ Sum sh_warp[WARPS];
+  __shared__ Sum sh_at;
+  __shared__ int sh_flag;
+  const int G = gridDim.x, b = blockIdx.x, n = p.n;
+  const int nt = (n + TILE - 1) / TILE;
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(p.scratch);
+  int* err = p.scratch + 2;
+  int* recs = p.scratch + HEADER_INTS;
 
-__global__ void k2_summary(const int* __restrict__ d, const int* __restrict__ w, int n, int s,
-                           int kk, Sum* __restrict__ sums) {
-  __shared__ Sum sh[K2_THREADS];
-  int i0 = blockIdx.x * K2_TILE + threadIdx.x * K2_ITEMS;
-  Sum total;
-  block_scan(k2_thread_sum(d, w, n, s, kk, i0), sh, &total);
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
-}
-
-__global__ void k2_scatter(const int* __restrict__ a, const int* __restrict__ d,
-                           const int* __restrict__ w, int n, int s, int kk,
-                           const Sum* __restrict__ carry, const int* __restrict__ count,
-                           int* __restrict__ a_out, int* __restrict__ d_out,
-                           int* __restrict__ w_out, int* __restrict__ u_out) {
-  __shared__ Sum sh[K2_THREADS];
-  int i0 = blockIdx.x * K2_TILE + threadIdx.x * K2_ITEMS;
-  Sum total;
-  Sum ex = block_scan(k2_thread_sum(d, w, n, s, kk, i0), sh, &total);
-  Sum st = combine(carry[blockIdx.x], ex);
-  int c = *count;
-  int zr = st.z, rp = st.pt, rq = st.qt;
-  for (int t = 0; t < K2_ITEMS; ++t) {
-    int i = i0 + t;
-    if (i >= n) break;
-    int v = seed_at(d, i, kk);
-    int wi = w[i];
-    rp = max(rp, v);
-    rq = max(rq, v);
-    u_out[i] = zr;
-    int dst, dv;
-    if ((wi >> s) & 1) {
-      dst = c + (i - zr);
-      dv = rq;
-      rq = INT_MIN;
-    } else {
-      dst = zr;
-      dv = rp;
-      rp = INT_MIN;
-      zr++;
+  Tile<AD, ITEMS> t;
+  for (int r = 0; r < p.nsites; ++r) {
+    const int s = (p.s0 + r) & 31, kk = p.kk0 + r, stamp = r + 1;
+    const size_t from = (size_t)((r ? r - 1 : 0) % p.a_mod) * p.a_stride;
+    const size_t to = (size_t)(r % p.a_mod) * p.a_stride;
+    const int* a_src = r ? p.a_out + from : p.a_in0;
+    int* a_dst = p.a_out + to;
+    const int* d_src = nullptr;
+    int* d_dst = nullptr;
+    if constexpr (AD) {
+      d_src = r ? p.d_out + from : p.d_in0;
+      d_dst = p.d_out + to;
     }
-    a_out[dst] = a[i];
-    w_out[dst] = wi;
-    d_out[dst] = dst == 0 ? kk + 2 : dv;
+    const int* w_src = r ? (p.w_pp ? p.w_pp + (size_t)((r - 1) & 1) * p.w_stride : nullptr)
+                         : p.w_in0;
+    int* w_dst = p.w_pp ? p.w_pp + (size_t)(r & 1) * p.w_stride : nullptr;
+    const int* w_gat = (p.w_nat && (!w_src || s == 0))
+                           ? p.w_nat + (size_t)((p.s0 + r) >> 5) * p.wn_stride
+                           : nullptr;
+
+    // 1. every own tile: load, summarise, publish
+    Sum ex = sum_identity();
+    int held = -1;  // the tile whose rows and prefix the registers hold
+    for (int j = b; j < nt; j += G) {
+      load_tile<AD, ITEMS>(t, j, n, s, kk, a_src, d_src, w_src, w_gat);
+      held = j;
+      Sum tot;
+      ex = block_scan(thread_sum<AD, ITEMS>(t), sh_warp, &tot);
+      if constexpr (!AD) {
+        // the sorted column: ITEMS bits a thread, 32 / ITEMS threads a word
+        constexpr int PER = 32 / ITEMS;
+        unsigned word = t.keys << ((threadIdx.x % PER) * ITEMS);
+#pragma unroll
+        for (int off = 1; off < PER; off <<= 1) word |= __shfl_xor_sync(0xffffffffu, word, off);
+        int wi = t.i0 >> 5;
+        if (threadIdx.x % PER == 0 && wi < p.rw) p.ycols[(size_t)r * p.rw + wi] = word;
+      }
+      if (threadIdx.x == 0) publish(recs, j, tot, stamp);
+    }
+
+    // 2. the site's zero count and the carry into the first own tile
+    Sum run;
+    bool failed;
+    const int c = scan_records(recs, 0, nt, b, stamp, err, sh_warp, &sh_at, &run, &failed).z;
+    if (failed) return;
+    if (b == 0 && threadIdx.x == 0) p.counts[r] = c;
+
+    // 3. scatter every own tile
+    for (int j = b; j < nt; j += G) {
+      if (j != b) {  // the tiles since this block's last one
+        Sum unused;
+        run = combine(run, scan_records(recs, j - G, j, j, stamp, err, sh_warp, &sh_at, &unused,
+                                        &failed));
+        if (failed) return;
+      }
+      if (j != held) {  // only a block with several tiles loads again
+        load_tile<AD, ITEMS>(t, j, n, s, kk, a_src, d_src, w_src, w_gat);
+        held = j;
+        Sum tot;
+        ex = block_scan(thread_sum<AD, ITEMS>(t), sh_warp, &tot);
+      }
+      const Sum st = combine(run, ex);
+      int zr = st.z, rp = st.pt, rq = st.qt;
+      int u[AD ? ITEMS : 1];
+#pragma unroll
+      for (int q = 0; q < ITEMS; ++q) {
+        if (q < t.nvalid) {
+          const int i = t.i0 + q;
+          int dst, dv = 0;
+          if constexpr (AD) {
+            u[q] = zr;
+            rp = max(rp, t.d[q]);
+            rq = max(rq, t.d[q]);
+          }
+          if ((t.keys >> q) & 1) {
+            dst = c + (i - zr);
+            if constexpr (AD) {
+              dv = rq;
+              rq = INT_MIN;
+            }
+          } else {
+            dst = zr++;
+            if constexpr (AD) {
+              dv = rp;
+              rp = INT_MIN;
+            }
+          }
+          if ((unsigned)dst < (unsigned)n) {
+            a_dst[dst] = t.a[q];
+            if (w_dst) w_dst[dst] = t.w[q];
+            if constexpr (AD) d_dst[dst] = dst == 0 ? kk + 2 : dv;
+          }
+        } else if constexpr (AD) {
+          u[q] = 0;
+        }
+      }
+      if constexpr (AD) store_rows<ITEMS>(p.u_out + (size_t)r * p.a_stride, t.i0, t.nvalid, u);
+    }
+
+    // 4. the next site reads what every block scattered
+    if (r + 1 < p.nsites &&
+        grid_barrier(bar, (unsigned long long)(r + 1) * (unsigned long long)G, err, &sh_flag))
+      return;
+  }
+}
+
+// Launches the kernel on a grid that is resident as a whole: at most
+// occupancy x SMs blocks (and at most max_blocks, if positive), one a tile.
+template <bool AD, int ITEMS>
+int launch_sites(Params& p, int max_blocks, cudaStream_t st) {
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, partition_sites<AD, ITEMS>, THREADS, 0);
+  if (e != cudaSuccess) return (int)e;
+  long long cap = (long long)occ * sms;
+  if (max_blocks > 0 && max_blocks < cap) cap = max_blocks;
+  if (cap < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int tile = THREADS * ITEMS;
+  long long nt = ((long long)p.n + tile - 1) / tile;
+  int grid = (int)(nt < cap ? nt : cap);
+  void* args[] = {&p};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(partition_sites<AD, ITEMS>), dim3(grid),
+                                  dim3(THREADS), args, 0, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Rows a thread when the caller leaves it open: the most (8, 4, 2) that still
+// give every SM a tile, since a site is latency and not bytes.
+int auto_items(int n, int sms) {
+  for (int items = 8; items > MIN_ITEMS; items >>= 1)
+    if (((long long)n + THREADS * items - 1) / (THREADS * items) >= sms) return items;
+  return MIN_ITEMS;
+}
+
+template <bool AD>
+int dispatch(Params& p, int items, int max_blocks, cudaStream_t st) {
+  if (items == 0) {
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    items = auto_items(p.n, sms);
+  }
+  switch (items) {
+    case 2: return launch_sites<AD, 2>(p, max_blocks, st);
+    case 4: return launch_sites<AD, 4>(p, max_blocks, st);
+    case 8: return launch_sites<AD, 8>(p, max_blocks, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-#define LAUNCH_CHECK()                           \
-  do {                                           \
-    cudaError_t err_ = cudaGetLastError();       \
-    if (err_ != cudaSuccess) return (int)err_;   \
-  } while (0)
-
 extern "C" {
 
-// Rows per block of K1 (which = 1) and K2 (which = 2), and the size in ints of
-// one block summary; the Python wrappers size their scratch with these.
-int pbwt_tile(int which) {
+// Layout of the scratch the wrappers allocate (zeroed, once a launch):
+// which = 1 the header's ints, 2 the ints of a tile summary, 3 the fewest rows
+// of a tile; the scratch holds the header and a summary for each tile.
+int pbwt_partition_layout(int which) {
   switch (which) {
-    case 1: return K1_THREADS;
-    case 2: return K2_TILE;
-    case 3: return (int)(sizeof(Sum) / sizeof(int));
+    case 1: return HEADER_INTS;
+    case 2: return REC_INTS;
+    case 3: return THREADS * MIN_ITEMS;
     default: return -1;
   }
 }
 
-// K1. w_nat: natural-order words; a_in: the prefix array entering the group.
-// Writes a_out/w_out (after 32 sites), ycols (32 x rw packed sorted columns),
-// counts (32 zero counts). a_tmp/w_tmp and the two summary arrays (one Sum per
-// block) are scratch.
-int k1_group_partition(int device, const int* w_nat, const int* a_in, int n, int* a_out,
-                       int* w_out, int* a_tmp, int* w_tmp, int* ycols, int rw, int* counts,
-                       void* sums, void* offs, void* stream) {
-  if (n <= 0) return 0;
+// K1 over ngroups 32-site groups in one launch. w_nat: ngroups planes of n
+// natural-order words, wn_stride ints apart; a_in0: the prefix array entering
+// the first group. a_pp: two planes of n ints; the final prefix array is left
+// in plane 1. w_pp: two planes for the words carried in sort order (the final
+// words in plane 1), or null to read every site's bit through a. ycols:
+// ngroups*32 packed sorted columns of rw = ceil(n/32) words; counts: ngroups*32
+// zero counts. items: rows a thread (8, 4, 2; 0 chooses); max_blocks: a cap on
+// the grid (0: what the card holds).
+int k1_group_partition(int device, const int* w_nat, long long wn_stride, const int* a_in0,
+                       int n, int ngroups, int* a_pp, int* w_pp, int* ycols, int rw,
+                       int* counts, int* scratch, int items, int max_blocks, void* stream) {
+  if (n <= 0 || ngroups <= 0) return 0;
+  if (n > INT_MAX - 4096 || ngroups > MAX_SITES / 32 || !w_nat) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  int nb = (n + K1_THREADS - 1) / K1_THREADS;
-  k1_gather<<<nb, K1_THREADS, 0, st>>>(w_nat, a_in, n, a_out, w_out);
-  LAUNCH_CHECK();
-  int *ac = a_out, *wc = w_out, *an = a_tmp, *wn = w_tmp;
-  for (int s = 0; s < 32; ++s) {
-    k1_count<<<nb, K1_THREADS, 0, st>>>(wc, n, s, (unsigned*)(ycols + (size_t)s * rw), rw,
-                                        (Sum*)sums);
-    LAUNCH_CHECK();
-    scan_blocks<<<1, SCAN_THREADS, 0, st>>>((const Sum*)sums, (Sum*)offs, nb, counts + s);
-    LAUNCH_CHECK();
-    k1_scatter<<<nb, K1_THREADS, 0, st>>>(ac, wc, n, s, (const Sum*)offs, counts + s, an, wn);
-    LAUNCH_CHECK();
-    int* t = ac; ac = an; an = t;
-    t = wc; wc = wn; wn = t;
-  }
-  return 0;  // 32 swaps: the result is back in a_out/w_out
+  Params p = {};
+  p.n = n;
+  p.nsites = 32 * ngroups;
+  p.a_in0 = a_in0;
+  p.a_out = a_pp;
+  p.a_stride = (size_t)n;
+  p.a_mod = 2;
+  p.w_pp = w_pp;
+  p.w_stride = (size_t)n;
+  p.w_nat = w_nat;
+  p.wn_stride = (size_t)wn_stride;
+  p.ycols = reinterpret_cast<unsigned*>(ycols);
+  p.rw = rw;
+  p.counts = counts;
+  p.scratch = scratch;
+  return dispatch<false>(p, items, max_blocks, (cudaStream_t)stream);
 }
 
-// K2. One site: bit s of w, global site index kk. d is the divergence array
-// entering the site (no d[M] sentinel); count receives the zero count.
-int k2_partition_ad_step(int device, const int* a, const int* d, const int* w, int n, int s,
-                         int kk, int* a_out, int* d_out, int* w_out, int* u_out, int* count,
-                         void* sums, void* carry, void* stream) {
-  if (n <= 0) return 0;
+// K2 over nsites chained sites in one launch: site r is bit (s0+r)%32 of word
+// group (s0+r)/32 and global site kk0+r. a_in0, d_in0 enter site 0 (d without
+// the d[M] sentinel); site r writes row r of a_out, d_out, u_out (rows
+// row_stride ints apart) and counts[r], and reads rows r-1 of a_out and d_out:
+// with a_out = A[1], d_out = D, u_out = U these are the trajectory tables.
+// Words: w_in0 (in sort order) enters site 0 and w_pp (two planes of n ints)
+// carries them, or w_nat (planes wn_stride apart) gives them in natural order;
+// with both, w_nat is read where a group begins.
+int k2_partition_ad_step(int device, const int* a_in0, const int* d_in0, const int* w_in0,
+                         const int* w_nat, long long wn_stride, int n, int nsites, int s0,
+                         int kk0, int* a_out, int* d_out, int* u_out, long long row_stride,
+                         int* w_pp, int* counts, int* scratch, int items, int max_blocks,
+                         void* stream) {
+  if (n <= 0 || nsites <= 0) return 0;
+  if (n > INT_MAX - 4096 || nsites > MAX_SITES ||
+      (!w_nat && !(w_in0 && w_pp && nsites + (s0 & 31) <= 32)))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  int nb = (n + K2_TILE - 1) / K2_TILE;
-  k2_summary<<<nb, K2_THREADS, 0, st>>>(d, w, n, s, kk, (Sum*)sums);
-  LAUNCH_CHECK();
-  scan_blocks<<<1, SCAN_THREADS, 0, st>>>((const Sum*)sums, (Sum*)carry, nb, count);
-  LAUNCH_CHECK();
-  k2_scatter<<<nb, K2_THREADS, 0, st>>>(a, d, w, n, s, kk, (const Sum*)carry, count, a_out, d_out,
-                                        w_out, u_out);
-  LAUNCH_CHECK();
-  return 0;
+  Params p = {};
+  p.n = n;
+  p.nsites = nsites;
+  p.s0 = s0;
+  p.kk0 = kk0;
+  p.a_in0 = a_in0;
+  p.a_out = a_out;
+  p.d_in0 = d_in0;
+  p.d_out = d_out;
+  p.a_stride = (size_t)row_stride;
+  p.a_mod = INT_MAX;
+  p.w_in0 = w_in0;
+  p.w_pp = w_pp;
+  p.w_stride = (size_t)n;
+  p.w_nat = w_nat;
+  p.wn_stride = (size_t)wn_stride;
+  p.u_out = u_out;
+  p.counts = counts;
+  p.scratch = scratch;
+  return dispatch<true>(p, items, max_blocks, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -20,7 +20,7 @@ import torch
 
 from ..core import native, pack3
 from . import resolve_device
-from .partition import GROUP, group_partition
+from .partition import GROUP, group_scan
 
 
 def pad_to(M: int, multiple: int = 256) -> int:
@@ -55,15 +55,10 @@ def build_scan_grouped(W: torch.Tensor, a0: torch.Tensor):
 
     W: (Ng, Mp) int32 group words in natural order; a0: (Mp,) int32 start
     prefix array. Returns (ycols (Ng*32, ceil(Mp/32)) int32 packed sorted
-    columns, counts (Ng*32,) int32, a_end (Mp,) int32).
+    columns, counts (Ng*32,) int32, a_end (Mp,) int32). On the card all
+    groups are one launch of kernel K1.
     """
-    a = a0
-    ys, cs = [], []
-    for t in range(W.shape[0]):
-        a, _, ycols, counts = group_partition(W[t], a)
-        ys.append(ycols)
-        cs.append(counts)
-    return torch.cat(ys), torch.cat(cs), a
+    return group_scan(W, a0)
 
 
 def build_pbwt_device(X: np.ndarray, device=None):

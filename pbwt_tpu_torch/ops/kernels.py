@@ -34,10 +34,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "k1_group_partition": [_I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-                           _P],
-    "k2_partition_ad_step": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                             _P, _P, _P],
+    "k1_group_partition": [_I, _P, _L, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
+                           _I, _P],
+    "k2_partition_ad_step": [_I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
+                             _P, _L, _P, _P, _P, _I, _I, _P],
     "k3_match_scan": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                       _P, _I, _P, _P],
     "k4_ls_step": [_I, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P],
@@ -47,11 +47,16 @@ _SIGNATURES = {
 # kernel name -> number of wrapper calls that launched it
 LAUNCHES = dict.fromkeys(_SIGNATURES, 0)
 
-# rows per block of K1 and K2, and ints per block summary; checked against the
-# compiled library when it loads
-K1_BLOCK = 1024
-K2_BLOCK = 2048
-SUM_INTS = 5
+# entries that launch nothing: name -> argument types
+_AUX_SIGNATURES = {"pbwt_partition_layout": [_I]}
+
+# scratch of the partition kernels (K1, K2): ints of the header, ints of one
+# tile summary, and the fewest rows of a tile; checked against the compiled
+# library when it loads
+HEADER_INTS = 8
+REC_INTS = 4
+MIN_TILE = 512
+ERROR_WORD = 2          # int of the header a capped wait reports through
 
 _lock = threading.Lock()
 _lib = None
@@ -125,12 +130,15 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            lib.pbwt_tile.argtypes = [ctypes.c_int]
-            lib.pbwt_tile.restype = ctypes.c_int
-            got = (lib.pbwt_tile(1), lib.pbwt_tile(2), lib.pbwt_tile(3))
-            if got != (K1_BLOCK, K2_BLOCK, SUM_INTS):
-                raise RuntimeError(f"pbwt_tpu_torch: kernel tiles {got} != "
-                                   f"{(K1_BLOCK, K2_BLOCK, SUM_INTS)}")
+            for name, argtypes in _AUX_SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            got = tuple(lib.pbwt_partition_layout(i) for i in (1, 2, 3))
+            if got != (HEADER_INTS, REC_INTS, MIN_TILE):
+                raise RuntimeError(f"pbwt_tpu_torch: partition scratch layout "
+                                   f"{got} != "
+                                   f"{(HEADER_INTS, REC_INTS, MIN_TILE)}")
             _lib = lib
     return _lib
 

@@ -26,9 +26,9 @@ import torch
 from ..core import native
 from . import kernels, resolve_device
 from .build import pad_to
-from .partition import GROUP, partition_ad_step
+from .partition import GROUP, ad_trajectory
 
-ROW_MULTIPLE = kernels.K2_BLOCK     # matcher rows pad to K2's block
+ROW_MULTIPLE = 2048                 # matcher rows pad to this multiple
 TRAJ_BYTES = 48 << 30               # trajectory budget on an 80 GB card
 REC_CAP = 1 << 17                   # first record-buffer size
 REC_INTS = 5                        # record: (k, q, e_old, f_old, g_old)
@@ -60,24 +60,9 @@ def panel_trajectory(W: torch.Tensor, a0: torch.Tensor, d0: torch.Tensor):
     array before site k and A[Ns] the final one; D (Ns, Mp): the divergence
     array after site k; U (Ns, Mp): the exclusive zero ranks of site k over
     the pre-site order; C (Ns,): zeros at site k), all int32, Ns = Ng*32.
+    On the card the tables are filled by one launch of kernel K2.
     """
-    Ng, Mp = W.shape
-    Ns = Ng * GROUP
-    dev = W.device
-    A = torch.empty((Ns + 1, Mp), dtype=torch.int32, device=dev)
-    D = torch.empty((Ns, Mp), dtype=torch.int32, device=dev)
-    U = torch.empty((Ns, Mp), dtype=torch.int32, device=dev)
-    C = torch.empty(Ns, dtype=torch.int32, device=dev)
-    A[0] = a0
-    d = d0
-    for t in range(Ng):
-        w = W[t][A[GROUP * t].long()]
-        for s in range(GROUP):
-            k = GROUP * t + s
-            _, d, w, _, _ = partition_ad_step(
-                A[k], d, w, s, k, out=(A[k + 1], D[k], None, U[k],
-                                       C[k:k + 1]))
-    return A, D, U, C
+    return ad_trajectory(W, a0, d0)
 
 
 def _query_bit(xq_words: torch.Tensor, j: int) -> torch.Tensor:

@@ -2,9 +2,17 @@
 
 Counterpart of ``pbwt_tpu/ops/partition_pallas.py``. Arrays are flat
 ``(Mp,)`` int32 tensors in sort order (the TPU's ``(R, 128)`` planes
-flattened); any ``Mp`` is accepted. Each wrapper runs its CUDA kernel
-(``csrc/partition.cu``) on CUDA tensors and its plain-torch twin on CPU
-tensors; it never falls back from one to the other.
+flattened); any ``Mp`` is accepted. :func:`group_partition` and
+:func:`partition_ad_step` are the counterparts of the JAX functions (one
+group, one site); :func:`group_scan` and :func:`ad_trajectory` run a whole
+construction scan and a whole trajectory, which on the card is one
+persistent launch each (``csrc/partition.cu``). Each wrapper runs its CUDA
+kernel on CUDA tensors and its plain-torch twin on CPU tensors; it never
+falls back from one to the other.
+
+``items`` and ``max_blocks`` shape a launch (rows a thread: 8, 4 or 2; a
+cap on the grid); 0 lets the kernel choose, as every caller but a test or a
+probe does.
 """
 
 from __future__ import annotations
@@ -14,6 +22,11 @@ import torch
 from . import kernels
 
 GROUP = 32   # sites per packed group word
+
+# The multi-site launches read every site's bit through the prefix array,
+# bit s of W[t][a[i]], and carry no word plane in sort order (see PERF.md for
+# the two measured side by side).
+CARRY_WORDS = False
 
 
 def _exclusive_zero_rank(key: torch.Tensor):
@@ -56,7 +69,53 @@ def group_partition_plain(w: torch.Tensor, a: torch.Tensor):
     return a, w, ycols, counts
 
 
-def group_partition(w: torch.Tensor, a: torch.Tensor):
+def _scratch(n: int, dev: torch.device) -> torch.Tensor:
+    """Zeroed scratch of one launch: the header (barrier counter, error
+    word) and one summary for each tile of the smallest size."""
+    return torch.zeros(kernels.HEADER_INTS
+                       + kernels.REC_INTS * -(-n // kernels.MIN_TILE),
+                       dtype=torch.int32, device=dev)
+
+
+def _raise_on_error(scratch: torch.Tensor, name: str) -> None:
+    """Read the launch's error word (this waits for the kernel) and raise
+    if a capped wait tripped."""
+    code = int(scratch[kernels.ERROR_WORD])
+    if code:
+        what = {1: "the grid barrier", 2: "a tile summary's flag"}.get(
+            code, f"error {code}")
+        raise RuntimeError(f"pbwt_tpu_torch: {name} gave up waiting for "
+                           f"{what}")
+
+
+def _k1_launch(W, a0, carry_w: bool, items: int, max_blocks: int):
+    """K1 over the (Ng, n) natural-order word planes W in one launch.
+    Returns (a_pp, w_pp or None, ycols, counts): the final prefix array and
+    words are plane 1 of a_pp and w_pp."""
+    dev = kernels.cuda_tensors(W, a0)
+    Ng, n = W.shape
+    if a0.numel() != n:
+        raise ValueError(f"group partition: W has {n} rows, a {a0.numel()}")
+    rw = (n + 31) // 32
+    a_pp = torch.empty((2, n), dtype=torch.int32, device=dev)
+    w_pp = torch.empty_like(a_pp) if carry_w else None
+    ycols = torch.empty((Ng * GROUP, rw), dtype=torch.int32, device=dev)
+    counts = torch.empty(Ng * GROUP, dtype=torch.int32, device=dev)
+    if n == 0 or Ng == 0:
+        a_pp[1] = a0
+        return a_pp, w_pp, ycols, counts
+    scratch = _scratch(n, dev)
+    kernels.launch("k1_group_partition", dev.index, W.data_ptr(),
+                   W.stride(0), a0.data_ptr(), n, Ng, a_pp.data_ptr(),
+                   w_pp.data_ptr() if carry_w else None, ycols.data_ptr(), rw,
+                   counts.data_ptr(), scratch.data_ptr(), items, max_blocks,
+                   kernels.stream(dev))
+    _raise_on_error(scratch, "k1_group_partition")
+    return a_pp, w_pp, ycols, counts
+
+
+def group_partition(w: torch.Tensor, a: torch.Tensor, items: int = 0,
+                    max_blocks: int = 0):
     """32 stable partitions of one site group (kernel K1).
 
     w: (Mp,) int32 group words in NATURAL haplotype order, site s of the
@@ -68,23 +127,36 @@ def group_partition(w: torch.Tensor, a: torch.Tensor):
     """
     if w.device.type == "cpu":
         return group_partition_plain(w, a)
-    dev = kernels.cuda_tensors(w, a)
-    n = w.numel()
-    if a.numel() != n:
-        raise ValueError(f"group_partition: w has {n} rows, a {a.numel()}")
-    rw = (n + 31) // 32
-    nb = -(-n // kernels.K1_BLOCK)
-    a_out, w_out, a_tmp, w_tmp = (torch.empty_like(a) for _ in range(4))
-    ycols = torch.empty((GROUP, rw), dtype=torch.int32, device=dev)
-    counts = torch.empty(GROUP, dtype=torch.int32, device=dev)
-    sums, offs = (torch.empty(nb * kernels.SUM_INTS, dtype=torch.int32,
-                              device=dev) for _ in range(2))
-    kernels.launch("k1_group_partition", dev.index, w.data_ptr(),
-                   a.data_ptr(), n, a_out.data_ptr(), w_out.data_ptr(),
-                   a_tmp.data_ptr(), w_tmp.data_ptr(), ycols.data_ptr(), rw,
-                   counts.data_ptr(), sums.data_ptr(), offs.data_ptr(),
-                   kernels.stream(dev))
-    return a_out, w_out, ycols, counts
+    a_pp, w_pp, ycols, counts = _k1_launch(w.view(1, -1), a, True, items,
+                                           max_blocks)
+    return a_pp[1], w_pp[1], ycols, counts
+
+
+def group_scan_plain(W: torch.Tensor, a0: torch.Tensor):
+    """Plain twin of :func:`group_scan`: the groups one after another."""
+    a = a0
+    ys, cs = [], []
+    for t in range(W.shape[0]):
+        a, _, ycols, counts = group_partition_plain(W[t], a)
+        ys.append(ycols)
+        cs.append(counts)
+    return torch.cat(ys), torch.cat(cs), a
+
+
+def group_scan(W: torch.Tensor, a0: torch.Tensor, items: int = 0,
+               max_blocks: int = 0):
+    """The stable partitions of every site of every group (kernel K1, one
+    launch for all groups).
+
+    W: (Ng, Mp) int32 group words in natural order, Ng >= 1; a0: (Mp,) int32
+    start prefix array. Returns (ycols (Ng*32, ceil(Mp/32)) int32 packed
+    sorted columns, counts (Ng*32,) int32, a_end (Mp,) int32).
+    """
+    if W.device.type == "cpu":
+        return group_scan_plain(W, a0)
+    a_pp, _, ycols, counts = _k1_launch(W, a0, CARRY_WORDS, items,
+                                        max_blocks)
+    return ycols, counts, a_pp[1]
 
 
 def _segmented_cummax(v: torch.Tensor, resets: torch.Tensor) -> torch.Tensor:
@@ -117,7 +189,8 @@ def partition_ad_step_plain(a, d, w, s: int, kk: int):
             c.reshape(1).to(torch.int32))
 
 
-def partition_ad_step(a, d, w, s: int, kk: int, out=None):
+def partition_ad_step(a, d, w, s: int, kk: int, out=None, items: int = 0,
+                      max_blocks: int = 0):
     """One site of the divergence-carrying partition (kernel K2).
 
     a, d, w: (Mp,) int32 in the current sort order (d without the d[M]
@@ -136,19 +209,85 @@ def partition_ad_step(a, d, w, s: int, kk: int, out=None):
     n = a.numel()
     if d.numel() != n or w.numel() != n:
         raise ValueError("partition_ad_step: a, d, w differ in length")
+    if not 0 <= s < GROUP:
+        raise ValueError(f"partition_ad_step: bit {s} is not in a word")
     sizes = [n] * 4 + [1]
     out = [torch.empty(sz, dtype=torch.int32, device=dev) if o is None else o
            for o, sz in zip(out, sizes)]
     kernels.cuda_tensors(a, *out)
     if [o.numel() for o in out] != sizes:
         raise ValueError("partition_ad_step: output sizes differ from input")
-    nb = -(-n // kernels.K2_BLOCK)
-    sums, carry = (torch.empty(nb * kernels.SUM_INTS, dtype=torch.int32,
-                               device=dev) for _ in range(2))
     a2, d2, w2, u, cnt = out
+    if n == 0:
+        cnt.zero_()
+        return a2, d2, w2, u, cnt
+    scratch = _scratch(n, dev)
     kernels.launch("k2_partition_ad_step", dev.index, a.data_ptr(),
-                   d.data_ptr(), w.data_ptr(), n, int(s), int(kk),
-                   a2.data_ptr(), d2.data_ptr(), w2.data_ptr(), u.data_ptr(),
-                   cnt.data_ptr(), sums.data_ptr(), carry.data_ptr(),
-                   kernels.stream(dev))
+                   d.data_ptr(), w.data_ptr(), None, 0, n, 1, int(s), int(kk),
+                   a2.data_ptr(), d2.data_ptr(), u.data_ptr(), n,
+                   w2.data_ptr(), cnt.data_ptr(), scratch.data_ptr(), items,
+                   max_blocks, kernels.stream(dev))
+    _raise_on_error(scratch, "k2_partition_ad_step")
     return a2, d2, w2, u, cnt
+
+
+def _trajectory_tables(W: torch.Tensor):
+    Ng, Mp = W.shape
+    Ns = Ng * GROUP
+    A = torch.empty((Ns + 1, Mp), dtype=torch.int32, device=W.device)
+    D = torch.empty((Ns, Mp), dtype=torch.int32, device=W.device)
+    U = torch.empty((Ns, Mp), dtype=torch.int32, device=W.device)
+    C = torch.empty(Ns, dtype=torch.int32, device=W.device)
+    return A, D, U, C
+
+
+def ad_trajectory_plain(W: torch.Tensor, a0: torch.Tensor, d0: torch.Tensor):
+    """Plain twin of :func:`ad_trajectory`: site after site, the words
+    regathered into the sort order where a group begins."""
+    A, D, U, C = _trajectory_tables(W)
+    A[0] = a0
+    d = d0
+    for t in range(W.shape[0]):
+        w = W[t][A[GROUP * t].long()]
+        for s in range(GROUP):
+            k = GROUP * t + s
+            A[k + 1], d, w, U[k], C[k:k + 1] = partition_ad_step_plain(
+                A[k], d, w, s, k)
+            D[k] = d
+    return A, D, U, C
+
+
+def ad_trajectory(W: torch.Tensor, a0: torch.Tensor, d0: torch.Tensor,
+                  items: int = 0, max_blocks: int = 0):
+    """The divergence-carrying partition of every site of every group,
+    written as the trajectory tables (kernel K2, one launch for all sites).
+
+    W: (Ng, Mp) int32 group words in natural order; a0, d0: (Mp,) int32 the
+    start prefix and divergence arrays. Returns (A (Ns+1, Mp): A[k] the
+    prefix array before site k and A[Ns] the final one; D (Ns, Mp): the
+    divergence array after site k; U (Ns, Mp): the exclusive zero ranks of
+    site k over the pre-site order; C (Ns,): zeros at site k), all int32,
+    Ns = Ng*32. The kernel reads and writes the tables' rows themselves.
+    """
+    if W.device.type == "cpu":
+        return ad_trajectory_plain(W, a0, d0)
+    dev = kernels.cuda_tensors(W, a0, d0)
+    Ng, Mp = W.shape
+    if a0.numel() != Mp or d0.numel() != Mp:
+        raise ValueError(f"ad_trajectory: W has {Mp} rows, a0 {a0.numel()}, "
+                         f"d0 {d0.numel()}")
+    A, D, U, C = _trajectory_tables(W)
+    A[0] = a0
+    if Mp == 0 or Ng == 0:
+        return A, D, U, C
+    w_pp = torch.empty((2, Mp), dtype=torch.int32, device=dev) \
+        if CARRY_WORDS else None
+    scratch = _scratch(Mp, dev)
+    kernels.launch("k2_partition_ad_step", dev.index, A.data_ptr(),
+                   d0.data_ptr(), None, W.data_ptr(), W.stride(0), Mp,
+                   Ng * GROUP, 0, 0, A[1].data_ptr(), D.data_ptr(),
+                   U.data_ptr(), Mp,
+                   w_pp.data_ptr() if CARRY_WORDS else None, C.data_ptr(),
+                   scratch.data_ptr(), items, max_blocks, kernels.stream(dev))
+    _raise_on_error(scratch, "k2_partition_ad_step")
+    return A, D, U, C

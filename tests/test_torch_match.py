@@ -137,3 +137,37 @@ def test_over_budget_panel_raises(monkeypatch):
     monkeypatch.setattr(match, "TRAJ_BYTES", 1000)
     with pytest.raises(ValueError, match="segmented matcher"):
         match.DeviceMatcher(np.zeros((10, 40), np.uint8), device="cpu")
+
+
+def test_trajectory_through_port_padding_matches_jax(jax_matcher):
+    """A ragged panel (300 rows) through the port's own padding, to a
+    multiple of 2,048 with copies of row 0, and the JAX matcher's, to its
+    own width: the pad rows sit in one run behind row 0 in both, so with
+    them taken out the prefix arrays agree at every site, and so do the
+    zero counts less the pad rows'."""
+    Xp, jm = jax_matcher
+    tm = match.DeviceMatcher(Xp, device="cpu")
+    assert tm.Mp == 2048 and tm.Mp != jm.Mp
+    A_j, _, _, C_j = _trajectory_from_jax(jm)
+    Ns = A_j.shape[0] - 1
+    assert tm.A.shape == (Ns + 1, tm.Mp)
+    for k in range(Ns + 1):
+        assert torch.equal(tm.A[k][tm.A[k] < M], A_j[k][A_j[k] < M])
+    x0 = np.zeros(Ns, np.int64)
+    x0[:N] = Xp[0] == 0
+    x0[N:] = 1                            # pad sites are zero bits
+    real_t = tm.C.numpy() - (tm.Mp - M) * x0
+    real_j = C_j.numpy() - (jm.Mp - M) * x0
+    assert np.array_equal(real_t, real_j)
+
+
+def test_matcher_trajectory_is_one_wrapper_call(jax_matcher, monkeypatch):
+    """DeviceMatcher builds its tables through the multi-site wrapper, once
+    a panel, and never through the per-site step."""
+    Xp, _ = jax_matcher
+    calls = []
+    real = match.ad_trajectory
+    monkeypatch.setattr(match, "ad_trajectory",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    tm = match.DeviceMatcher(Xp, device="cpu")
+    assert calls == [(tm.Ng, tm.Mp)]

@@ -2,6 +2,11 @@
 plain-torch twins, against the JAX package's Pallas kernels (interpret mode)
 and the host engine. Every comparison is exact: all values are integers."""
 
+import ctypes
+import glob
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -9,6 +14,7 @@ import torch
 import jax.numpy as jnp
 
 from pbwt_tpu.core import engine
+from pbwt_tpu.ops import match_jax
 from pbwt_tpu.ops import partition_pallas as pp
 from pbwt_tpu_torch.ops import convert, kernels, partition
 
@@ -107,3 +113,82 @@ def test_partitions_match_engine(M):
         assert np.array_equal(at.numpy(), a)
         assert np.array_equal(dt.numpy(), d[:M])
         assert np.array_equal(wt.numpy(), ws)
+
+
+def _trajectory_inputs(seed, Ng, Mp):
+    rng = np.random.RandomState(seed)
+    W = rng.randint(0, 2**32, size=(Ng, Mp), dtype=np.uint32).astype(np.int32)
+    W[:, : Mp // 3] = W[:, :1]            # long equal runs: deep divergence
+    W[-1, Mp // 2:] = -1                  # a stretch of sites with few zeros
+    a0 = np.arange(Mp, dtype=np.int32)
+    d0 = np.zeros(Mp, np.int32)
+    d0[0] = 1
+    return W, a0, d0
+
+
+@pytest.mark.parametrize("Mp", [256, 2048, 4096])
+def test_ad_trajectory_matches_jax(Mp):
+    """The multi-site wrapper (on the CPU its twin, the loop of the plain
+    site step) against the JAX package's panel_trajectory: the same tables,
+    value for value, across a group boundary."""
+    W, a0, d0 = _trajectory_inputs(Mp, 2, Mp)
+    before = dict(kernels.LAUNCHES)
+    got = partition.ad_trajectory(_t(W), _t(a0), _t(d0))
+    a_end, A_pre, D8, _, U8, C = match_jax.panel_trajectory(
+        jnp.asarray(W), jnp.asarray(a0), jnp.asarray(d0))
+    want = convert.trajectory_from_jax(*(np.asarray(x) for x in
+                                         (a_end, A_pre, D8, U8, C)))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        assert np.array_equal(g.numpy(), w)
+    assert kernels.LAUNCHES == before    # CPU tensors never reach a kernel
+
+
+def test_ad_trajectory_rejects_what_the_kernel_does_not_take():
+    """On a CUDA tensor the wrappers launch or raise; a tensor of another
+    type or layout is refused before any launch (checked here without a
+    card: the check comes first)."""
+    W, a0, d0 = _trajectory_inputs(0, 1, 64)
+    with pytest.raises(ValueError):
+        kernels.cuda_tensors(_t(W), _t(a0), _t(d0))      # CPU tensors
+    with pytest.raises(ValueError):
+        kernels.cuda_tensors(_t(W).t())                   # not contiguous
+
+
+_CTYPES = {"ptr": ctypes.c_void_p, "int": ctypes.c_int,
+           "long long": ctypes.c_longlong, "float": ctypes.c_float}
+
+
+def _c_entries():
+    """name -> list of argument kinds of every function defined inside an
+    extern "C" block of csrc/*.cu."""
+    entries = {}
+    for path in sorted(glob.glob(os.path.join(kernels.CSRC, "*.cu"))):
+        with open(path) as f:
+            text = re.sub(r"//[^\n]*", "", f.read())
+        block = text[text.index('extern "C" {'):]
+        for name, args in re.findall(r"^\w[\w ]*?\b(\w+)\(([^)]*)\) \{",
+                                     block, re.M):
+            kinds = []
+            for arg in args.split(","):
+                arg = " ".join(arg.split())
+                if "*" in arg:
+                    kinds.append("ptr")
+                else:
+                    kinds.append(arg.replace("const ", "")
+                                 .rsplit(" ", 1)[0])
+            entries[name] = kinds
+    return entries
+
+
+def test_c_prototypes_match_ctypes_signatures():
+    """Every extern "C" entry of csrc/*.cu has the argument count and the
+    pointer / int / long long / float kinds that ops/kernels.py binds it
+    with: a mismatch would corrupt a call and cannot be seen without a
+    card."""
+    entries = _c_entries()
+    bound = {**kernels._SIGNATURES, **kernels._AUX_SIGNATURES}
+    assert set(entries) == set(bound)
+    for name, kinds in entries.items():
+        assert [_CTYPES[k] for k in kinds] == bound[name], name
+    assert set(kernels.LAUNCHES) == set(kernels._SIGNATURES)
