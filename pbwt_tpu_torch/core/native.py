@@ -61,15 +61,16 @@ def get_lib():
     """Load (building if needed) the native library, or None; the first
     None comes with a warning that says why, since the numpy routes that
     take over are far slower."""
+    global _warned
     lib = _load()
     if lib is None and build_log and not _warned:
-        _warned.append(True)
+        _warned = True
         warnings.warn("pbwt_tpu_torch: no host C runtime, the numpy routes "
                       f"take over: {build_log}", RuntimeWarning, stacklevel=2)
     return lib
 
 
-_warned: list[bool] = []
+_warned = False
 
 
 def _load():

@@ -42,8 +42,8 @@
 //      own tile its carry-in. There is no scan kernel and no second pass over
 //      the rows: with one tile a block they stay in registers;
 //   3. scatter from registers: zeros to their rank, ones after the count;
-//   4. one grid barrier (an atomic counter that only grows) before the next
-//      site's loads.
+//   4. one grid barrier (an atomic counter that only grows, a release add and
+//      acquire loads) before the next site's loads.
 // Every spin is capped and reports through an error word that the wrapper
 // reads, so a fault is an exception, not a hang. Loads of planes that other
 // blocks wrote go to L2 (__ldcg). Row offsets are int (n < 2^31 - 4096);
@@ -77,38 +77,46 @@ struct Sum {
 
 __device__ __forceinline__ Sum sum_identity() { return Sum{0, 0, INT_MIN, 0, INT_MIN}; }
 
-// a precedes b
+// a precedes b. AD: with the divergence fields (K2); without, they stay at
+// the identity and only the zero counts are added (K1).
+template <bool AD>
 __device__ __forceinline__ Sum combine(const Sum& a, const Sum& b) {
-  Sum r;
+  Sum r = sum_identity();
   r.z = a.z + b.z;
-  r.ph = a.ph | b.ph;
-  r.pt = b.ph ? b.pt : max(a.pt, b.pt);
-  r.qh = a.qh | b.qh;
-  r.qt = b.qh ? b.qt : max(a.qt, b.qt);
+  if constexpr (AD) {
+    r.ph = a.ph | b.ph;
+    r.pt = b.ph ? b.pt : max(a.pt, b.pt);
+    r.qh = a.qh | b.qh;
+    r.qt = b.qh ? b.qt : max(a.qt, b.qt);
+  }
   return r;
 }
 
+template <bool AD>
 __device__ __forceinline__ Sum shfl_up(const Sum& v, int off) {
-  Sum r;
+  Sum r = sum_identity();
   r.z = __shfl_up_sync(0xffffffffu, v.z, off);
-  r.ph = __shfl_up_sync(0xffffffffu, v.ph, off);
-  r.pt = __shfl_up_sync(0xffffffffu, v.pt, off);
-  r.qh = __shfl_up_sync(0xffffffffu, v.qh, off);
-  r.qt = __shfl_up_sync(0xffffffffu, v.qt, off);
+  if constexpr (AD) {
+    r.ph = __shfl_up_sync(0xffffffffu, v.ph, off);
+    r.pt = __shfl_up_sync(0xffffffffu, v.pt, off);
+    r.qh = __shfl_up_sync(0xffffffffu, v.qh, off);
+    r.qt = __shfl_up_sync(0xffffffffu, v.qt, off);
+  }
   return r;
 }
 
 // Ordered scan over the block's threads: returns this thread's exclusive
 // prefix, *total the combination of all. Every thread of the block calls it.
+template <bool AD>
 __device__ Sum block_scan(const Sum& mine, Sum* sh_warp, Sum* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   Sum inc = mine;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    Sum o = shfl_up(inc, off);
-    if (lane >= off) inc = combine(o, inc);
+    Sum o = shfl_up<AD>(inc, off);
+    if (lane >= off) inc = combine<AD>(o, inc);
   }
-  Sum ex = shfl_up(inc, 1);
+  Sum ex = shfl_up<AD>(inc, 1);
   if (lane == 0) ex = sum_identity();
   __syncthreads();  // the last call's readers of sh_warp are done
   if (lane == 31) sh_warp[warp] = inc;
@@ -117,11 +125,11 @@ __device__ Sum block_scan(const Sum& mine, Sum* sh_warp, Sum* total) {
 #pragma unroll
   for (int w = 0; w < WARPS; ++w) {
     Sum x = sh_warp[w];
-    if (w < warp) pre = combine(pre, x);
-    tot = combine(tot, x);
+    if (w < warp) pre = combine<AD>(pre, x);
+    tot = combine<AD>(tot, x);
   }
   *total = tot;
-  return combine(pre, ex);
+  return combine<AD>(pre, ex);
 }
 
 // A published tile summary is one 16-byte word, written and read whole (one
@@ -131,7 +139,7 @@ __device__ Sum block_scan(const Sum& mine, Sum* sh_warp, Sum* total) {
 // the launch plus one; the scratch starts zeroed.
 __device__ __forceinline__ void publish(int* recs, int j, const Sum& v, int stamp) {
   int* r = recs + (size_t)j * REC_INTS;
-  asm volatile("st.volatile.global.v4.s32 [%0], {%1, %2, %3, %4};" ::"l"(r), "r"(v.z), "r"(v.pt),
+  asm volatile("st.relaxed.gpu.global.v4.s32 [%0], {%1, %2, %3, %4};" ::"l"(r), "r"(v.z), "r"(v.pt),
                "r"(v.qt), "r"((stamp << 2) | (v.ph << 1) | v.qh)
                : "memory");
 }
@@ -142,7 +150,7 @@ __device__ __forceinline__ Sum wait_record(int* recs, int j, int stamp, int* err
   const int* r = recs + (size_t)j * REC_INTS;
   int x, y, z, w, spins = 0;
   for (;;) {
-    asm volatile("ld.volatile.global.v4.s32 {%0, %1, %2, %3}, [%4];"
+    asm volatile("ld.relaxed.gpu.global.v4.s32 {%0, %1, %2, %3}, [%4];"
                  : "=r"(x), "=r"(y), "=r"(z), "=r"(w)
                  : "l"(r)
                  : "memory");
@@ -163,6 +171,7 @@ __device__ __forceinline__ Sum wait_record(int* recs, int j, int stamp, int* err
 // Combination, in tile order, of the published summaries lo..hi-1 (returned to
 // every thread), and of lo..want-1 into *at_want (lo <= want <= hi). *failed
 // is set, for the whole block alike, when a wait gave up.
+template <bool AD>
 __device__ Sum scan_records(int* recs, int lo, int hi, int want, int stamp, int* err,
                             Sum* sh_warp, Sum* sh_at, Sum* at_want, bool* failed) {
   Sum carry = sum_identity();
@@ -171,9 +180,9 @@ __device__ Sum scan_records(int* recs, int lo, int hi, int want, int stamp, int*
     int idx = base + threadIdx.x;
     Sum v = idx < hi ? wait_record(recs, idx, stamp, err, &bad) : sum_identity();
     Sum tot;
-    Sum ex = block_scan(v, sh_warp, &tot);
-    if (idx == want) *sh_at = combine(carry, ex);
-    carry = combine(carry, tot);
+    Sum ex = block_scan<AD>(v, sh_warp, &tot);
+    if (idx == want) *sh_at = combine<AD>(carry, ex);
+    carry = combine<AD>(carry, tot);
   }
   *failed = __syncthreads_or(bad);
   *at_want = want < hi ? *sh_at : carry;
@@ -188,10 +197,14 @@ __device__ bool grid_barrier(unsigned long long* bar, unsigned long long target,
                              int* sh_flag) {
   __syncthreads();
   if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(bar, 1ull);
+    // a release add and acquire loads, cheaper than a full fence on each side;
+    // the block's stores are ordered before the add through the __syncthreads
+    asm volatile("red.release.gpu.global.add.u64 [%0], 1;" ::"l"(bar) : "memory");
     int spins = 0, bad = 0;
-    while (*reinterpret_cast<volatile unsigned long long*>(bar) < target) {
+    for (;;) {
+      unsigned long long seen;
+      asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(seen) : "l"(bar) : "memory");
+      if (seen >= target) break;
       if (++spins > SPIN_CAP) {
         atomicExch(err, ERR_BARRIER);
         bad = 1;
@@ -202,7 +215,6 @@ __device__ bool grid_barrier(unsigned long long* bar, unsigned long long target,
         break;
       }
     }
-    __threadfence();
     *sh_flag = bad;
   }
   __syncthreads();
@@ -378,7 +390,7 @@ __global__ void __launch_bounds__(THREADS) partition_sites(const Params p) {
       load_tile<AD, ITEMS>(t, j, n, s, kk, a_src, d_src, w_src, w_gat);
       held = j;
       Sum tot;
-      ex = block_scan(thread_sum<AD, ITEMS>(t), sh_warp, &tot);
+      ex = block_scan<AD>(thread_sum<AD, ITEMS>(t), sh_warp, &tot);
       if constexpr (!AD) {
         // the sorted column: ITEMS bits a thread, 32 / ITEMS threads a word
         constexpr int PER = 32 / ITEMS;
@@ -394,7 +406,7 @@ __global__ void __launch_bounds__(THREADS) partition_sites(const Params p) {
     // 2. the site's zero count and the carry into the first own tile
     Sum run;
     bool failed;
-    const int c = scan_records(recs, 0, nt, b, stamp, err, sh_warp, &sh_at, &run, &failed).z;
+    const int c = scan_records<AD>(recs, 0, nt, b, stamp, err, sh_warp, &sh_at, &run, &failed).z;
     if (failed) return;
     if (b == 0 && threadIdx.x == 0) p.counts[r] = c;
 
@@ -402,17 +414,17 @@ __global__ void __launch_bounds__(THREADS) partition_sites(const Params p) {
     for (int j = b; j < nt; j += G) {
       if (j != b) {  // the tiles since this block's last one
         Sum unused;
-        run = combine(run, scan_records(recs, j - G, j, j, stamp, err, sh_warp, &sh_at, &unused,
-                                        &failed));
+        run = combine<AD>(run, scan_records<AD>(recs, j - G, j, j, stamp, err, sh_warp, &sh_at,
+                                                &unused, &failed));
         if (failed) return;
       }
       if (j != held) {  // only a block with several tiles loads again
         load_tile<AD, ITEMS>(t, j, n, s, kk, a_src, d_src, w_src, w_gat);
         held = j;
         Sum tot;
-        ex = block_scan(thread_sum<AD, ITEMS>(t), sh_warp, &tot);
+        ex = block_scan<AD>(thread_sum<AD, ITEMS>(t), sh_warp, &tot);
       }
-      const Sum st = combine(run, ex);
+      const Sum st = combine<AD>(run, ex);
       int zr = st.z, rp = st.pt, rq = st.qt;
       int u[AD ? ITEMS : 1];
 #pragma unroll

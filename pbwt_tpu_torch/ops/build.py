@@ -1,11 +1,11 @@
 """Device PBWT construction on the group-partition kernel (K1).
 
 Counterpart of ``pbwt_tpu/ops/build.py:139-288``. The panel rides as 32
-future sites per int32 word; per group the kernel aligns the words to the
-sort order with one gather and runs the group's 32 stable partitions,
-emitting each site's sorted column packed 32 rows per word and its zero
-count. The host pack3-encodes the sorted columns into the byte-exact .pbwt
-stream.
+future sites per int32 word; one launch of the kernel runs the 32 stable
+partitions of every group, the words aligned to the sort order with a
+gather where a group begins, and emits each site's sorted column packed 32
+rows per word and its zero count. The host pack3-encodes the sorted columns into the byte-exact
+.pbwt stream.
 
 Padding (as the JAX package): rows beyond M are all-ones haplotypes, which
 start at the end of the sort order and stay there under every stable
@@ -74,8 +74,9 @@ def build_pbwt_device(X: np.ndarray, device=None):
     a0 = torch.arange(Mp, dtype=torch.int32, device=dev)
     ycols, counts, a_end = build_scan_grouped(W, a0)
     Ysort = unpack_columns(ycols[:N].cpu().numpy(), M)
-    # the native column encoder when the C runtime is there: numpy's
-    # pack_columns spends most of its time in np.unique at this size
+    # the native column encoder when the C runtime is there (its absence
+    # comes with a warning): numpy's pack_columns spends most of its time in
+    # np.unique at this size
     yz, _ = native.encode_cols(Ysort) or pack3.pack_columns(Ysort)
     return (yz, a_end[:M].cpu().numpy().astype(np.int32),
             counts[:N].cpu().numpy())

@@ -8,11 +8,8 @@ group, one site); :func:`group_scan` and :func:`ad_trajectory` run a whole
 construction scan and a whole trajectory, which on the card is one
 persistent launch each (``csrc/partition.cu``). Each wrapper runs its CUDA
 kernel on CUDA tensors and its plain-torch twin on CPU tensors; it never
-falls back from one to the other.
-
-``items`` and ``max_blocks`` shape a launch (rows a thread: 8, 4 or 2; a
-cap on the grid); 0 lets the kernel choose, as every caller but a test or a
-probe does.
+falls back from one to the other. The kernels choose their own launch
+shape (rows a thread, blocks) from the row count and the card.
 """
 
 from __future__ import annotations
@@ -22,11 +19,6 @@ import torch
 from . import kernels
 
 GROUP = 32   # sites per packed group word
-
-# The multi-site launches read every site's bit through the prefix array,
-# bit s of W[t][a[i]], and carry no word plane in sort order (see PERF.md for
-# the two measured side by side).
-CARRY_WORDS = False
 
 
 def _exclusive_zero_rank(key: torch.Tensor):
@@ -88,17 +80,19 @@ def _raise_on_error(scratch: torch.Tensor, name: str) -> None:
                            f"{what}")
 
 
-def _k1_launch(W, a0, carry_w: bool, items: int, max_blocks: int):
-    """K1 over the (Ng, n) natural-order word planes W in one launch.
-    Returns (a_pp, w_pp or None, ycols, counts): the final prefix array and
-    words are plane 1 of a_pp and w_pp."""
+def _k1_launch(W, a0):
+    """K1 over the (Ng, n) natural-order word planes W in one launch, the
+    words carried in sort order and regathered where a group begins (for
+    the scan a tenth faster than reading every site's bit through a).
+    Returns (a_pp, w_pp, ycols, counts): the final prefix array and words
+    are plane 1 of a_pp and w_pp."""
     dev = kernels.cuda_tensors(W, a0)
     Ng, n = W.shape
     if a0.numel() != n:
         raise ValueError(f"group partition: W has {n} rows, a {a0.numel()}")
     rw = (n + 31) // 32
     a_pp = torch.empty((2, n), dtype=torch.int32, device=dev)
-    w_pp = torch.empty_like(a_pp) if carry_w else None
+    w_pp = torch.empty_like(a_pp)
     ycols = torch.empty((Ng * GROUP, rw), dtype=torch.int32, device=dev)
     counts = torch.empty(Ng * GROUP, dtype=torch.int32, device=dev)
     if n == 0 or Ng == 0:
@@ -107,15 +101,13 @@ def _k1_launch(W, a0, carry_w: bool, items: int, max_blocks: int):
     scratch = _scratch(n, dev)
     kernels.launch("k1_group_partition", dev.index, W.data_ptr(),
                    W.stride(0), a0.data_ptr(), n, Ng, a_pp.data_ptr(),
-                   w_pp.data_ptr() if carry_w else None, ycols.data_ptr(), rw,
-                   counts.data_ptr(), scratch.data_ptr(), items, max_blocks,
-                   kernels.stream(dev))
+                   w_pp.data_ptr(), ycols.data_ptr(), rw, counts.data_ptr(),
+                   scratch.data_ptr(), 0, 0, kernels.stream(dev))
     _raise_on_error(scratch, "k1_group_partition")
     return a_pp, w_pp, ycols, counts
 
 
-def group_partition(w: torch.Tensor, a: torch.Tensor, items: int = 0,
-                    max_blocks: int = 0):
+def group_partition(w: torch.Tensor, a: torch.Tensor):
     """32 stable partitions of one site group (kernel K1).
 
     w: (Mp,) int32 group words in NATURAL haplotype order, site s of the
@@ -127,8 +119,7 @@ def group_partition(w: torch.Tensor, a: torch.Tensor, items: int = 0,
     """
     if w.device.type == "cpu":
         return group_partition_plain(w, a)
-    a_pp, w_pp, ycols, counts = _k1_launch(w.view(1, -1), a, True, items,
-                                           max_blocks)
+    a_pp, w_pp, ycols, counts = _k1_launch(w.view(1, -1), a)
     return a_pp[1], w_pp[1], ycols, counts
 
 
@@ -143,8 +134,7 @@ def group_scan_plain(W: torch.Tensor, a0: torch.Tensor):
     return torch.cat(ys), torch.cat(cs), a
 
 
-def group_scan(W: torch.Tensor, a0: torch.Tensor, items: int = 0,
-               max_blocks: int = 0):
+def group_scan(W: torch.Tensor, a0: torch.Tensor):
     """The stable partitions of every site of every group (kernel K1, one
     launch for all groups).
 
@@ -154,8 +144,7 @@ def group_scan(W: torch.Tensor, a0: torch.Tensor, items: int = 0,
     """
     if W.device.type == "cpu":
         return group_scan_plain(W, a0)
-    a_pp, _, ycols, counts = _k1_launch(W, a0, CARRY_WORDS, items,
-                                        max_blocks)
+    a_pp, _, ycols, counts = _k1_launch(W, a0)
     return ycols, counts, a_pp[1]
 
 
@@ -189,8 +178,7 @@ def partition_ad_step_plain(a, d, w, s: int, kk: int):
             c.reshape(1).to(torch.int32))
 
 
-def partition_ad_step(a, d, w, s: int, kk: int, out=None, items: int = 0,
-                      max_blocks: int = 0):
+def partition_ad_step(a, d, w, s: int, kk: int):
     """One site of the divergence-carrying partition (kernel K2).
 
     a, d, w: (Mp,) int32 in the current sort order (d without the d[M]
@@ -198,35 +186,26 @@ def partition_ad_step(a, d, w, s: int, kk: int, out=None, items: int = 0,
     Returns (a', d', w', u, count): the stable partition of (a, d, w) by
     bit s with d updated as pbwtCursorForwardsAD does (d'[0] = kk+2), the
     exclusive zero ranks u over the pre-site order, and the zero count as
-    a (1,) tensor. ``out`` may give the five output tensors (None entries
-    are allocated); they must not alias the inputs.
+    a (1,) tensor.
     """
-    out = list(out) if out is not None else [None] * 5
     if a.device.type == "cpu":
-        res = partition_ad_step_plain(a, d, w, s, kk)
-        return tuple(r if o is None else o.copy_(r) for o, r in zip(out, res))
+        return partition_ad_step_plain(a, d, w, s, kk)
     dev = kernels.cuda_tensors(a, d, w)
     n = a.numel()
     if d.numel() != n or w.numel() != n:
         raise ValueError("partition_ad_step: a, d, w differ in length")
     if not 0 <= s < GROUP:
         raise ValueError(f"partition_ad_step: bit {s} is not in a word")
-    sizes = [n] * 4 + [1]
-    out = [torch.empty(sz, dtype=torch.int32, device=dev) if o is None else o
-           for o, sz in zip(out, sizes)]
-    kernels.cuda_tensors(a, *out)
-    if [o.numel() for o in out] != sizes:
-        raise ValueError("partition_ad_step: output sizes differ from input")
-    a2, d2, w2, u, cnt = out
+    a2, d2, w2, u = (torch.empty_like(a) for _ in range(4))
+    cnt = torch.zeros(1, dtype=torch.int32, device=dev)
     if n == 0:
-        cnt.zero_()
         return a2, d2, w2, u, cnt
     scratch = _scratch(n, dev)
     kernels.launch("k2_partition_ad_step", dev.index, a.data_ptr(),
                    d.data_ptr(), w.data_ptr(), None, 0, n, 1, int(s), int(kk),
                    a2.data_ptr(), d2.data_ptr(), u.data_ptr(), n,
-                   w2.data_ptr(), cnt.data_ptr(), scratch.data_ptr(), items,
-                   max_blocks, kernels.stream(dev))
+                   w2.data_ptr(), cnt.data_ptr(), scratch.data_ptr(), 0, 0,
+                   kernels.stream(dev))
     _raise_on_error(scratch, "k2_partition_ad_step")
     return a2, d2, w2, u, cnt
 
@@ -257,8 +236,7 @@ def ad_trajectory_plain(W: torch.Tensor, a0: torch.Tensor, d0: torch.Tensor):
     return A, D, U, C
 
 
-def ad_trajectory(W: torch.Tensor, a0: torch.Tensor, d0: torch.Tensor,
-                  items: int = 0, max_blocks: int = 0):
+def ad_trajectory(W: torch.Tensor, a0: torch.Tensor, d0: torch.Tensor):
     """The divergence-carrying partition of every site of every group,
     written as the trajectory tables (kernel K2, one launch for all sites).
 
@@ -280,14 +258,13 @@ def ad_trajectory(W: torch.Tensor, a0: torch.Tensor, d0: torch.Tensor,
     A[0] = a0
     if Mp == 0 or Ng == 0:
         return A, D, U, C
-    w_pp = torch.empty((2, Mp), dtype=torch.int32, device=dev) \
-        if CARRY_WORDS else None
     scratch = _scratch(Mp, dev)
+    # no word plane is carried (w_in0, w_pp None): every site reads its bit
+    # through A[k], which here measured the same as carrying one
     kernels.launch("k2_partition_ad_step", dev.index, A.data_ptr(),
                    d0.data_ptr(), None, W.data_ptr(), W.stride(0), Mp,
                    Ng * GROUP, 0, 0, A[1].data_ptr(), D.data_ptr(),
-                   U.data_ptr(), Mp,
-                   w_pp.data_ptr() if CARRY_WORDS else None, C.data_ptr(),
-                   scratch.data_ptr(), items, max_blocks, kernels.stream(dev))
+                   U.data_ptr(), Mp, None, C.data_ptr(), scratch.data_ptr(),
+                   0, 0, kernels.stream(dev))
     _raise_on_error(scratch, "k2_partition_ad_step")
     return A, D, U, C

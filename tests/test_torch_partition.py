@@ -192,3 +192,16 @@ def test_c_prototypes_match_ctypes_signatures():
     for name, kinds in entries.items():
         assert [_CTYPES[k] for k in kinds] == bound[name], name
     assert set(kernels.LAUNCHES) == set(kernels._SIGNATURES)
+
+
+@pytest.mark.parametrize("code,what", [(1, "grid barrier"), (2, "flag")])
+def test_capped_wait_raises(code, what):
+    """A launch whose kernel gave up a wait leaves a code in its scratch's
+    error word, and the wrapper raises on it instead of returning tables."""
+    scratch = partition._scratch(5000, torch.device("cpu"))
+    assert scratch.numel() == kernels.HEADER_INTS + 10 * kernels.REC_INTS
+    assert not scratch.any()
+    partition._raise_on_error(scratch, "k2_partition_ad_step")    # clean
+    scratch[kernels.ERROR_WORD] = code
+    with pytest.raises(RuntimeError, match=what):
+        partition._raise_on_error(scratch, "k2_partition_ad_step")

@@ -4,9 +4,9 @@ csrc/partition.cu.
 
 Run from the repository root on a machine with one CUDA card and nvcc:
 
-    python3 tools/partition_probe.py [check] [barrier] [shapes] [profile]
+    python3 tools/partition_probe.py [check] [barrier] [shapes] [cuts] [profile]
 
-With no argument it runs all four parts:
+With no argument it runs all five parts:
 
 check    builds the kernels, prints what ptxas says of partition.cu
          (registers, spills), and holds K1 and K2 against their plain twins
@@ -15,19 +15,31 @@ check    builds the kernels, prints what ptxas says of partition.cu
          capped so that a block owns several tiles. Stops at the first
          difference.
 barrier  times a grid barrier alone: a cooperative kernel that does nothing
-         but 2,048 barriers, the package's counter barrier and
-         cooperative_groups' grid.sync(), over grid sizes. Sites x this time
+         but 2,048 barriers: a counter barrier with a full fence on each
+         side, cooperative_groups' grid.sync(), the counter barrier with a
+         warp of pollers offset in time, and the counter barrier with a
+         release add and acquire loads in place of the fences (the package's),
+         over grid sizes. Sites x this time
          is the least a chain of sites can cost.
 shapes   times the whole trajectory launch (K2, 100,352 rows x 2,048 sites)
          and the whole construction scan (K1, 65,536 rows x 4,096 sites) for
          each tile size, with the words carried in sort order and gathered
          through the prefix array each site, and the single-site and
          single-group calls.
+cuts     builds copies of partition.cu with one part of a site taken out (the
+         wait for the other tiles' summaries, the scattered stores, the grid
+         barrier too, the dependent load of the word through the prefix
+         array), or with wider blocks, and times the trajectory and the scan
+         with each. The copies
+         compute something else than the partitions: only their times mean
+         anything. They are made by replacing lines of the source, and the
+         probe stops if a line it looks for has changed.
 profile  wall, device time and busy share (torch.profiler) of
          panel_trajectory and build_scan_grouped at those shapes, as the
          package runs them.
-The probe calls the C entries directly where the package's wrappers have
-made their choice (carried or gathered words, the tile size).
+The probe calls the C entries directly: the package's wrappers leave the
+tile size to the kernel and have made their choice of carried or gathered
+words.
 """
 
 import ctypes
@@ -65,6 +77,49 @@ __global__ void counter_barriers(unsigned long long* bar, int n) {
   }
 }
 
+// the counter barrier with a warp of pollers, each lane offset in time, so
+// that the arrival of the last block is seen within a fraction of a load's
+// round trip
+__global__ void staggered_barriers(unsigned long long* bar, int n) {
+  __shared__ int seen;
+  for (int r = 0; r < n; ++r) {
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      if (threadIdx.x == 0) {
+        seen = 0;
+        __threadfence();
+        atomicAdd(bar, 1ull);
+      }
+      __syncwarp();
+      unsigned long long target = (unsigned long long)(r + 1) * gridDim.x;
+      __nanosleep(threadIdx.x * 20);
+      while (!*reinterpret_cast<volatile int*>(&seen)) {
+        if (*reinterpret_cast<volatile unsigned long long*>(bar) >= target)
+          *reinterpret_cast<volatile int*>(&seen) = 1;
+      }
+      __syncwarp();
+      if (threadIdx.x == 0) __threadfence();
+    }
+    __syncthreads();
+  }
+}
+
+// the counter barrier with a release add and acquire loads in place of the
+// two full fences
+__global__ void release_acquire_barriers(unsigned long long* bar, int n) {
+  for (int r = 0; r < n; ++r) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned long long target = (unsigned long long)(r + 1) * gridDim.x, seen;
+      asm volatile("red.release.gpu.global.add.u64 [%0], 1;" ::"l"(bar) : "memory");
+      do {
+        asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(seen) : "l"(bar) : "memory");
+      } while (seen < target);
+    }
+    __syncthreads();
+  }
+}
+
 __global__ void cg_barriers(unsigned long long* bar, int n) {
   cg::grid_group g = cg::this_grid();
   for (int r = 0; r < n; ++r) g.sync();
@@ -73,13 +128,35 @@ __global__ void cg_barriers(unsigned long long* bar, int n) {
 extern "C" int barrier_probe(int which, int grid, int threads, int n,
                              unsigned long long* bar, void* stream) {
   void* args[] = {&bar, &n};
-  void* fn = which ? (void*)cg_barriers : (void*)counter_barriers;
+  void* fn = which == 0 ? (void*)counter_barriers
+           : which == 1 ? (void*)cg_barriers
+           : which == 2 ? (void*)staggered_barriers
+                        : (void*)release_acquire_barriers;
   cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(threads), args, 0,
                                               (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 """
+
+
+# variant -> (text of the source, what takes its place)
+CUTS = {
+    "no_exchange": [("    if ((w >> 2) == stamp) break;\n", "    break;\n")],
+    "no_scatter": [("            a_dst[dst] = t.a[q];\n", ""),
+                   ("            if (w_dst) w_dst[dst] = t.w[q];\n", ""),
+                   ("            if constexpr (AD) d_dst[dst] = dst == 0 ? kk + 2 "
+                    ": dv;\n", "")],
+    "no_gather": [("__ldg(w_gat + t.a[q])", "__ldg(w_gat + t.i0 + q)")],
+}
+for threads in (512, 1024):       # wider blocks: fewer tiles at the same rows
+    CUTS[f"threads_{threads}"] = [("constexpr int THREADS = 256;",
+                                   f"constexpr int THREADS = {threads};")]
+CUTS["no_sync"] = CUTS["no_exchange"] + [
+    ("    if (r + 1 < p.nsites &&\n", "    if (false &&\n")]
+CUTS["no_sync_no_scatter"] = CUTS["no_sync"] + CUTS["no_scatter"]
+CUTS["no_sync_no_scatter_no_gather"] = (CUTS["no_sync_no_scatter"]
+                                        + CUTS["no_gather"])
 
 
 def say(tag, **kv):
@@ -127,26 +204,72 @@ class Probe:
 
     # ---- direct calls of the C entries, every choice an argument ----
 
-    def k2_tables(self, W, a0, d0, carry, items, max_blocks=0):
+    def entry(self, lib, name):
+        """Entry ``name`` of a library built from (a copy of) the sources,
+        bound as ops/kernels.py binds it; None is the package's library."""
+        if lib is None:
+            return getattr(self.kernels.library(), name)
+        fn = getattr(lib, name)
+        fn.argtypes = self.kernels._SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        return fn
+
+    def k2_tables(self, W, a0, d0, carry, items, max_blocks=0, lib=None):
+        """The trajectory launch. With a cut-down library the tables start
+        zeroed, so that a row no store reached still holds a valid index."""
         torch, kernels, partition = self.torch, self.kernels, self.partition
         Ng, Mp = W.shape
         A, D, U, C = partition._trajectory_tables(W)
+        if lib is not None:
+            A.zero_()
         A[0] = a0
         w_pp = torch.empty((2, Mp), dtype=torch.int32, device=self.dev) \
             if carry else None
         scratch = partition._scratch(Mp, self.dev)
-        kernels.launch("k2_partition_ad_step", 0, A.data_ptr(), d0.data_ptr(),
-                       None, W.data_ptr(), W.stride(0), Mp, Ng * 32, 0, 0,
-                       A[1].data_ptr(), D.data_ptr(), U.data_ptr(), Mp,
-                       w_pp.data_ptr() if carry else None, C.data_ptr(),
-                       scratch.data_ptr(), items, max_blocks,
-                       kernels.stream(self.dev))
+        err = self.entry(lib, "k2_partition_ad_step")(
+            0, A.data_ptr(), d0.data_ptr(), None, W.data_ptr(), W.stride(0),
+            Mp, Ng * 32, 0, 0, A[1].data_ptr(), D.data_ptr(), U.data_ptr(),
+            Mp, w_pp.data_ptr() if carry else None, C.data_ptr(),
+            scratch.data_ptr(), items, max_blocks, kernels.stream(self.dev))
+        if err:
+            sys.exit(f"partition_probe: K2 launch failed, cudaError_t {err}")
         partition._raise_on_error(scratch, "k2_partition_ad_step")
         return A, D, U, C
 
-    def k1_scan(self, W, a0, carry, items, max_blocks=0):
-        a_pp, _, ycols, counts = self.partition._k1_launch(
-            W, a0, carry, items, max_blocks)
+    def k2_site(self, a, d, w, s, kk, items, max_blocks=0):
+        """One site as a launch of its own, the words given in sort order."""
+        torch, kernels, partition = self.torch, self.kernels, self.partition
+        n = a.numel()
+        a2, d2, w2, u = (torch.empty_like(a) for _ in range(4))
+        cnt = torch.zeros(1, dtype=torch.int32, device=self.dev)
+        scratch = partition._scratch(n, self.dev)
+        err = self.entry(None, "k2_partition_ad_step")(
+            0, a.data_ptr(), d.data_ptr(), w.data_ptr(), None, 0, n, 1, s, kk,
+            a2.data_ptr(), d2.data_ptr(), u.data_ptr(), n, w2.data_ptr(),
+            cnt.data_ptr(), scratch.data_ptr(), items, max_blocks,
+            kernels.stream(self.dev))
+        if err:
+            sys.exit(f"partition_probe: K2 launch failed, cudaError_t {err}")
+        partition._raise_on_error(scratch, "k2_partition_ad_step")
+        return a2, d2, w2, u, cnt
+
+    def k1_scan(self, W, a0, carry, items, max_blocks=0, lib=None):
+        torch, kernels, partition = self.torch, self.kernels, self.partition
+        Ng, n = W.shape
+        rw = (n + 31) // 32
+        a_pp = torch.zeros((2, n), dtype=torch.int32, device=self.dev)
+        w_pp = torch.empty_like(a_pp) if carry else None
+        ycols = torch.empty((Ng * 32, rw), dtype=torch.int32, device=self.dev)
+        counts = torch.empty(Ng * 32, dtype=torch.int32, device=self.dev)
+        scratch = partition._scratch(n, self.dev)
+        err = self.entry(lib, "k1_group_partition")(
+            0, W.data_ptr(), W.stride(0), a0.data_ptr(), n, Ng,
+            a_pp.data_ptr(), w_pp.data_ptr() if carry else None,
+            ycols.data_ptr(), rw, counts.data_ptr(), scratch.data_ptr(),
+            items, max_blocks, kernels.stream(self.dev))
+        if err:
+            sys.exit(f"partition_probe: K1 launch failed, cudaError_t {err}")
+        partition._raise_on_error(scratch, "k1_group_partition")
         return ycols, counts, a_pp[1]
 
     # ---- parts ----
@@ -182,16 +305,16 @@ class Probe:
             d0 = torch.zeros(n, dtype=torch.int32, device=self.dev)
             d0[0] = 1
             want_g = partition.group_partition_plain(w, a)
+            want_g = (want_g[2], want_g[3], want_g[0])
             want_s = partition.partition_ad_step_plain(a, d, w, 5, 77)
             want_t = partition.ad_trajectory_plain(W, a, d0)
             want_k = partition.group_scan_plain(W, a)
             for items in (8, 4, 2, 0):
                 for mb in (0, 1, 3):
                     tag = f"n={n} items={items} max_blocks={mb}"
-                    equal(partition.group_partition(w, a, items, mb), want_g,
-                          f"K1 one group {tag}")
-                    equal(partition.partition_ad_step(a, d, w, 5, 77, None,
-                                                      items, mb), want_s,
+                    equal(self.k1_scan(w.view(1, -1), a, True, items, mb),
+                          want_g, f"K1 one group {tag}")
+                    equal(self.k2_site(a, d, w, 5, 77, items, mb), want_s,
                           f"K2 one site {tag}")
                     for carry in (False, True):
                         equal(self.k2_tables(W, a, d0, carry, items, mb),
@@ -218,7 +341,7 @@ class Probe:
         fn.argtypes, fn.restype = [I, I, I, I, P, P], I
         for grid in (32, 49, 64, 98, 128, 132, 196, 264, 392, 528):
             ms = []
-            for which in (0, 1):
+            for which in (0, 1, 2, 3):
                 def run():
                     bar = torch.zeros(2, dtype=torch.int32, device=self.dev)
                     err = fn(which, grid, 256, BARRIERS, bar.data_ptr(),
@@ -229,7 +352,9 @@ class Probe:
                 ms.append(cuda_ms(torch, run, 3))
             say("barrier", grid=grid, threads=256, barriers=BARRIERS,
                 counter_us=f"{1e3 * ms[0] / BARRIERS:.3f}",
-                grid_sync_us=f"{1e3 * ms[1] / BARRIERS:.3f}")
+                grid_sync_us=f"{1e3 * ms[1] / BARRIERS:.3f}",
+                staggered_counter_us=f"{1e3 * ms[2] / BARRIERS:.3f}",
+                release_acquire_us=f"{1e3 * ms[3] / BARRIERS:.3f}")
 
     def shapes(self):
         torch, partition = self.torch, self.partition
@@ -249,8 +374,8 @@ class Probe:
         a = self.t(self.rng.permutation(TRAJ_MP))
         d = self.t(self.rng.randint(0, 50, TRAJ_MP))
         for items in (8, 4, 2):
-            ms = cuda_ms(torch, lambda: partition.partition_ad_step(
-                a, d, W[0], 7, 99, None, items), 50)
+            ms = cuda_ms(torch, lambda: self.k2_site(a, d, W[0], 7, 99,
+                                                     items), 50)
             say("k2_one_site", Mp=TRAJ_MP, items=items, call_ms=f"{ms:.4f}")
         del W
         torch.cuda.empty_cache()
@@ -269,9 +394,52 @@ class Probe:
                     group_ms=f"{ms / SCAN_NG:.4f}")
         a = self.t(self.rng.permutation(SCAN_MP))
         for items in (8, 4, 2):
-            ms = cuda_ms(torch, lambda: partition.group_partition(
-                W[0], a, items), 20)
+            ms = cuda_ms(torch, lambda: self.k1_scan(W[:1], a, True, items),
+                         20)
             say("k1_one_group", Mp=SCAN_MP, items=items, call_ms=f"{ms:.4f}")
+
+    def cuts(self):
+        torch, kernels = self.torch, self.kernels
+        with open(os.path.join(kernels.CSRC, "partition.cu")) as f:
+            source = f.read()
+        with tempfile.TemporaryDirectory(prefix="partition_probe_") as tmp:
+            procs = {}
+            for name, cuts in {"as_is": [], **CUTS}.items():
+                text = source
+                for old, new in cuts:
+                    if text.count(old) != 1:
+                        sys.exit(f"partition_probe: {old!r} is not in "
+                                 f"partition.cu once")
+                    text = text.replace(old, new)
+                src, lib = (os.path.join(tmp, f"{name}.{e}")
+                            for e in ("cu", "so"))
+                with open(src, "w") as f:
+                    f.write(text)
+                procs[name] = lib, subprocess.Popen(
+                    [kernels.nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o",
+                     lib, src], stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)
+            libs = {}
+            for name, (lib, proc) in procs.items():
+                out = proc.communicate()[0]
+                if proc.returncode != 0:
+                    sys.exit(f"partition_probe: {name} did not build:\n{out}")
+                libs[name] = ctypes.CDLL(lib)
+        Wt = self.t(words(self.rng, TRAJ_NG, TRAJ_MP))
+        at = torch.arange(TRAJ_MP, dtype=torch.int32, device=self.dev)
+        dt = torch.zeros(TRAJ_MP, dtype=torch.int32, device=self.dev)
+        dt[0] = 1
+        Ws = self.t(words(self.rng, SCAN_NG, SCAN_MP))
+        as_ = torch.arange(SCAN_MP, dtype=torch.int32, device=self.dev)
+        for items in (4, 2):
+            for name, lib in libs.items():
+                k2 = cuda_ms(torch, lambda: self.k2_tables(
+                    Wt, at, dt, False, items, lib=lib), 2)
+                k1 = cuda_ms(torch, lambda: self.k1_scan(
+                    Ws, as_, False, items, lib=lib), 2)
+                say("cuts", variant=name, items=items,
+                    k2_site_us=f"{1e3 * k2 / (TRAJ_NG * 32):.3f}",
+                    k1_site_us=f"{1e3 * k1 / (SCAN_NG * 32):.3f}")
 
     def profile(self):
         torch = self.torch
@@ -310,8 +478,8 @@ class Probe:
 
 
 def main():
-    parts = sys.argv[1:] or ["check", "barrier", "shapes", "profile"]
-    if set(parts) - {"check", "barrier", "shapes", "profile"}:
+    parts = sys.argv[1:] or ["check", "barrier", "shapes", "cuts", "profile"]
+    if set(parts) - {"check", "barrier", "shapes", "cuts", "profile"}:
         sys.exit(__doc__)
     probe = Probe()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
