@@ -38,6 +38,7 @@ _SIGNATURES = {
                            _I, _P],
     "k2_partition_ad_step": [_I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
                              _P, _L, _P, _P, _P, _I, _I, _P],
+    "k3_rank_plane": [_I, _P, _P, _I, _I, _P, _P],
     "k3_match_scan": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                       _P, _I, _P, _P],
     "k4_ls_step": [_I, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P],
@@ -48,7 +49,7 @@ _SIGNATURES = {
 LAUNCHES = dict.fromkeys(_SIGNATURES, 0)
 
 # entries that launch nothing: name -> argument types
-_AUX_SIGNATURES = {"pbwt_partition_layout": [_I]}
+_AUX_SIGNATURES = {"pbwt_partition_layout": [_I], "k3_plane_layout": [_I]}
 
 # scratch of the partition kernels (K1, K2): ints of the header, ints of one
 # tile summary, and the fewest rows of a tile; checked against the compiled
@@ -57,6 +58,10 @@ HEADER_INTS = 8
 REC_INTS = 4
 MIN_TILE = 512
 ERROR_WORD = 2          # int of the header a capped wait reports through
+
+# int32 words a block of K3's rank plane (the rank at the block's start, then
+# the zero bits of its 32 * (PLANE_WORDS - 1) rows); checked likewise
+PLANE_WORDS = 4
 
 _lock = threading.Lock()
 _lib = None
@@ -135,6 +140,10 @@ def library() -> ctypes.CDLL:
                 raise RuntimeError(f"pbwt_tpu_torch: partition scratch layout "
                                    f"{got} != "
                                    f"{(HEADER_INTS, REC_INTS, MIN_TILE)}")
+            if lib.k3_plane_layout(1) != PLANE_WORDS:
+                raise RuntimeError(f"pbwt_tpu_torch: rank plane of "
+                                   f"{lib.k3_plane_layout(1)} words a block, "
+                                   f"not {PLANE_WORDS}")
             _lib = lib
     return _lib
 

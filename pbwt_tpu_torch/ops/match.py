@@ -7,6 +7,9 @@ Counterpart of ``pbwt_tpu/ops/match_jax.py`` (the trajectory path of
    divergence-carrying partition (kernel K2) and leaves per site the
    pre-site prefix array, the post-site divergence array, the FM rank table
    and the zero count in device memory, as plain int32 (12 B per hap-site).
+   :func:`rank_plane` (kernel ``k3_rank_plane``) then packs the rank table
+   into a bit plane with a rank a block, 1/24 of its bytes, which is what
+   the query scan reads; the int32 rank table is dropped.
 2. :func:`match_scan_indexed`: kernel K3 walks every query over the stored
    tables and appends a record of each interval collapse.
 3. :func:`expand_rows`: the records, sorted by (site, query), and the k = N
@@ -32,6 +35,7 @@ ROW_MULTIPLE = 2048                 # matcher rows pad to this multiple
 TRAJ_BYTES = 48 << 30               # trajectory budget on an 80 GB card
 REC_CAP = 1 << 17                   # first record-buffer size
 REC_INTS = 5                        # record: (k, q, e_old, f_old, g_old)
+PLANE_WORDS = kernels.PLANE_WORDS   # int32 words a block of the rank plane
 
 # bit-reversal of a byte: packbits order (site 8j at bit 7) -> site 8j at bit 0
 _REV8 = [int(f"{i:08b}"[::-1], 2) for i in range(256)]
@@ -65,6 +69,75 @@ def panel_trajectory(W: torch.Tensor, a0: torch.Tensor, d0: torch.Tensor):
     return ad_trajectory(W, a0, d0)
 
 
+def plane_blocks(Mp: int, words: int = PLANE_WORDS) -> int:
+    """Blocks a site of the rank plane: position Mp has a block too."""
+    return Mp // (32 * (words - 1)) + 1
+
+
+def rank_plane_plain(U: torch.Tensor, C: torch.Tensor,
+                     words: int = PLANE_WORDS) -> torch.Tensor:
+    """Plain twin of :func:`rank_plane`, 256 sites at a time."""
+    Ns, Mp = U.shape
+    nblk, rows = plane_blocks(Mp, words), 32 * (words - 1)
+    plane = torch.empty((Ns, nblk, words), dtype=torch.int32, device=U.device)
+    weight = torch.ones(32, dtype=torch.int64, device=U.device) \
+        << torch.arange(32, device=U.device)
+    for k0 in range(0, Ns, 256):
+        u, c = U[k0:k0 + 256], C[k0:k0 + 256, None]
+        # ranks at 0 .. nblk*rows: U, then the count at and beyond Mp
+        r = torch.cat([u, c.expand(-1, nblk * rows + 1 - Mp)], 1)
+        bits = (r[:, 1:] - r[:, :-1]).view(-1, nblk, words - 1, 32).long()
+        plane[k0:k0 + 256, :, 0] = r[:, :-1:rows]
+        plane[k0:k0 + 256, :, 1:] = (bits * weight).sum(-1).to(torch.int32)
+    return plane
+
+
+def rank_plane(U: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """The FM rank table as a bit plane (kernel ``k3_rank_plane``).
+
+    U (Ns, Mp) int32: the zeros of site k before position i of the pre-site
+    order; C (Ns,) the zeros of site k. Returns (Ns, nblk, PLANE_WORDS)
+    int32, nblk = :func:`plane_blocks`: block b of a site holds the rank at
+    its first row, b * 32 * (PLANE_WORDS - 1), then one bit a row (1: a
+    zero), row j of a word at bit j; rows at and beyond Mp hold no bit, so
+    :func:`plane_rank` gives U[k][i] for i < Mp and C[k] at i = Mp.
+    """
+    if U.device.type == "cpu":
+        return rank_plane_plain(U, C)
+    dev = kernels.cuda_tensors(U, C)
+    Ns, Mp = U.shape
+    if C.numel() != Ns:
+        raise ValueError("rank_plane: inconsistent table shapes")
+    plane = torch.empty((Ns, plane_blocks(Mp), PLANE_WORDS),
+                        dtype=torch.int32, device=dev)
+    kernels.launch("k3_rank_plane", dev.index, U.data_ptr(), C.data_ptr(),
+                   Ns, Mp, plane.data_ptr(), kernels.stream(dev))
+    return plane
+
+
+def _popcount32(v: torch.Tensor) -> torch.Tensor:
+    """Set bits of each value in [0, 2^32) of an int64 tensor."""
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) >> 24) & 0xFF
+
+
+def plane_rank(plane: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Ranks read from a rank plane (..., nblk, words) at the positions i
+    (n,) int64 in [0, Mp]: (..., n) int64, the block's rank plus the set
+    bits below the position, as kernel K3 reads them."""
+    words = plane.shape[-1]
+    b = torch.div(i, 32 * (words - 1), rounding_mode="floor")
+    r = i - b * (32 * (words - 1))
+    blk = plane[..., b, :].long()
+    rank = blk[..., 0]
+    for m in range(words - 1):
+        mask = (torch.ones_like(r) << (r - 32 * m).clamp(0, 32)) - 1
+        rank = rank + _popcount32(blk[..., 1 + m] & 0xFFFFFFFF & mask)
+    return rank
+
+
 def _query_bit(xq_words: torch.Tensor, j: int) -> torch.Tensor:
     """Site j of every query row (row-word layout of pack_row_words)."""
     return (xq_words[:, j >> 5] >> (8 * ((j >> 3) & 3) + 7 - (j & 7))) & 1
@@ -76,16 +149,16 @@ def _site_order(v: int) -> int:
                           "little")
 
 
-def match_scan_indexed_plain(U, D, A, C, xq_words, xp_words, e, f, g,
+def match_scan_indexed_plain(plane, D, A, C, xq_words, xp_words, e, f, g,
                              cap: int):
     """Plain twin of :func:`match_scan_indexed`: the FM step runs over all
     queries per site, the (rare) resets one query at a time on the host,
     in (site, query) order."""
-    Ns, Mp = U.shape
+    Ns, Mp = D.shape
     Q, nw = xq_words.shape
     e, f, g = e.clone(), f.clone(), g.clone()
-    rec = torch.full((cap, REC_INTS), -1, dtype=torch.int32,
-                     device=U.device)
+    dev = D.device
+    rec = torch.full((cap, REC_INTS), -1, dtype=torch.int32, device=dev)
     recs = []
     xq_h = xq_words.cpu().numpy().view(np.uint32)
     xp_h = xp_words.cpu().numpy().view(np.uint32)
@@ -93,8 +166,7 @@ def match_scan_indexed_plain(U, D, A, C, xq_words, xp_words, e, f, g,
         c = C[k].long()
         x = _query_bit(xq_words, k)
         fl, gl = f.long(), g.long()
-        uf = torch.where(fl == Mp, c, U[k][fl.clamp(max=Mp - 1)].long())
-        ug = torch.where(gl == Mp, c, U[k][gl.clamp(max=Mp - 1)].long())
+        uf, ug = plane_rank(plane[k], torch.cat([fl, gl])).view(2, Q)
         f1 = torch.where(x != 0, c + fl - uf, uf)
         g1 = torch.where(x != 0, c + gl - ug, ug)
         coll = torch.nonzero(g1 <= f1).flatten().tolist()
@@ -107,7 +179,7 @@ def match_scan_indexed_plain(U, D, A, C, xq_words, xp_words, e, f, g,
                 recs.append((k, q, e_h[q], f_h[q], g_h[q]))
                 e_h[q], f_h[q], g_h[q] = _reset(
                     k, f1_h[q], g1_h[q], dk, ak, xq_h[q], xp_h, Mp, nw)
-            e, f, g = (torch.tensor(v, dtype=torch.int32, device=U.device)
+            e, f, g = (torch.tensor(v, dtype=torch.int32, device=dev)
                        for v in (e_h, f_h, g_h))
             keep = ~(g1 <= f1)
             f = torch.where(keep, f1.to(torch.int32), f)
@@ -117,7 +189,7 @@ def match_scan_indexed_plain(U, D, A, C, xq_words, xp_words, e, f, g,
     if recs:
         n = min(len(recs), cap)
         rec[:n] = torch.tensor(recs[:n], dtype=torch.int32)
-    nrec = torch.tensor([len(recs)], dtype=torch.int32, device=U.device)
+    nrec = torch.tensor([len(recs)], dtype=torch.int32, device=dev)
     return e, f, g, rec, nrec
 
 
@@ -153,10 +225,12 @@ def _reset(k, f1, g1, dk, ak, xq, xp, Mp, nw):
     return e1, f1, gn
 
 
-def match_scan_indexed(U, D, A, C, xq_words, xp_words, e, f, g, cap: int):
+def match_scan_indexed(plane, D, A, C, xq_words, xp_words, e, f, g,
+                       cap: int):
     """Query scan against a stored trajectory (kernel K3).
 
-    U, D (Ns, Mp), A (Ns+1, Mp), C (Ns,) from :func:`panel_trajectory`;
+    D (Ns, Mp), A (Ns+1, Mp), C (Ns,) from :func:`panel_trajectory` and
+    plane from :func:`rank_plane` of its rank table;
     xq_words (Q, nw) and xp_words (Mp, nw) row words with nw*32 >= Ns;
     e, f, g (Q,) the starting intervals. Returns (e, f, g) after the last
     site (the flush carry), rec (cap, 5) int32 records (k, q, e, f, g) of the
@@ -164,21 +238,23 @@ def match_scan_indexed(U, D, A, C, xq_words, xp_words, e, f, g, cap: int):
     nrec > cap means the buffer overflowed and the scan must run again with
     a larger cap. The kernel appends records in no fixed order.
     """
-    if U.device.type == "cpu":
-        return match_scan_indexed_plain(U, D, A, C, xq_words, xp_words,
+    if plane.device.type == "cpu":
+        return match_scan_indexed_plain(plane, D, A, C, xq_words, xp_words,
                                         e, f, g, cap)
-    dev = kernels.cuda_tensors(U, D, A, C, xq_words, xp_words, e, f, g)
-    Ns, Mp = U.shape
+    dev = kernels.cuda_tensors(plane, D, A, C, xq_words, xp_words, e, f, g)
+    Ns, Mp = D.shape
     Q, nw = xq_words.shape
-    if (nw * 32 < Ns or A.shape != (Ns + 1, Mp) or D.shape != U.shape
+    if (nw * 32 < Ns or A.shape != (Ns + 1, Mp)
+            or plane.shape != (Ns, plane_blocks(Mp), PLANE_WORDS)
             or C.numel() != Ns or xp_words.shape != (Mp, nw)
             or not e.numel() == f.numel() == g.numel() == Q):
         raise ValueError("match_scan_indexed: inconsistent table shapes")
     e, f, g = e.clone(), f.clone(), g.clone()
     rec = torch.full((cap, REC_INTS), -1, dtype=torch.int32, device=dev)
     nrec = torch.zeros(1, dtype=torch.int32, device=dev)
-    kernels.launch("k3_match_scan", dev.index, U.data_ptr(), D.data_ptr(),
-                   A.data_ptr(), C.data_ptr(), xq_words.data_ptr(),
+    kernels.launch("k3_match_scan", dev.index, plane.data_ptr(),
+                   D.data_ptr(), A.data_ptr(), C.data_ptr(),
+                   xq_words.data_ptr(),
                    xp_words.data_ptr(), Ns, Mp, Q, nw, e.data_ptr(),
                    f.data_ptr(), g.data_ptr(), rec.data_ptr(), cap,
                    nrec.data_ptr(), kernels.stream(dev))
@@ -276,15 +352,16 @@ class DeviceMatcher:
         self._caps: dict[int, int] = {}
 
     def _finish_init(self, xp_pad: torch.Tensor) -> None:
-        """Row words, group words and the trajectory from the (Mp, 4*Ng)
-        packbits rows on the device."""
+        """Row words, group words, the trajectory and the rank plane from
+        the (Mp, 4*Ng) packbits rows on the device."""
         self.xp_words = xp_pad.view(torch.int32)              # (Mp, Ng)
         W = _BITREV.to(self.device)[xp_pad.long()].view(torch.int32) \
             .t().contiguous()                                 # (Ng, Mp)
         a0 = torch.arange(self.Mp, dtype=torch.int32, device=self.device)
         d0 = torch.zeros(self.Mp, dtype=torch.int32, device=self.device)
         d0[0] = 1
-        self.A, self.D, self.U, self.C = panel_trajectory(W, a0, d0)
+        self.A, self.D, U, self.C = panel_trajectory(W, a0, d0)
+        self.plane = rank_plane(U, self.C)
 
     def match(self, Xq: np.ndarray) -> np.ndarray:
         """Set-maximal matches of the (Q, N) queries: (n, 4) int32 rows
@@ -302,7 +379,7 @@ class DeviceMatcher:
                      torch.full((Q,), self.Mp, dtype=torch.int32,
                                 device=self.device))
             e, f, g, rec, nrec = match_scan_indexed(
-                self.U, self.D, self.A, self.C, xq_words, self.xp_words,
+                self.plane, self.D, self.A, self.C, xq_words, self.xp_words,
                 *start, cap=cap)
             nrec = int(nrec)
             if nrec <= cap:

@@ -1,6 +1,7 @@
-"""The port's matcher on the CPU (plain twins of K2 and K3) against the JAX
-package's DeviceMatcher, stage by stage: the panel trajectory, the query
-scan on the JAX-built trajectory, and the rows of a whole match, in order.
+"""The port's matcher on the CPU (plain twins of K2, k3_rank_plane and K3)
+against the JAX package's DeviceMatcher, stage by stage: the panel
+trajectory, its rank plane, the query scan on the JAX-built trajectory, and
+the rows of a whole match, in order.
 The data is that of tests/test_match_device.py's trajectory test."""
 
 import numpy as np
@@ -76,6 +77,7 @@ def test_scan_on_jax_trajectory_matches_jax(jax_matcher):
     Xp, jm = jax_matcher
     Xq = queries(Xp, 20, 1)
     A, D, U, C = _trajectory_from_jax(jm)
+    plane = match.rank_plane(U, C)
     Mp, Q = jm.Mp, Xq.shape[0]
     xq_words = match.pack_row_words(Xq, jm.nw)
     xq_d = jnp.asarray(xq_words)
@@ -86,7 +88,7 @@ def test_scan_on_jax_trajectory_matches_jax(jax_matcher):
         jm.xp_words, jnp.zeros(Q, jnp.int32), jnp.zeros(Q, jnp.int32),
         jnp.full(Q, Mp, jnp.int32), cap=1 << 17)
     e, f, g, rec, nrec_t = match.match_scan_indexed(
-        U, D, A, C, torch.from_numpy(xq_words),
+        plane, D, A, C, torch.from_numpy(xq_words),
         torch.from_numpy(np.array(jm.xp_words)),
         torch.zeros(Q, dtype=torch.int32), torch.zeros(Q, dtype=torch.int32),
         torch.full((Q,), Mp, dtype=torch.int32), cap=1 << 12)
@@ -171,3 +173,92 @@ def test_matcher_trajectory_is_one_wrapper_call(jax_matcher, monkeypatch):
                         lambda *a: calls.append(a[0].shape) or real(*a))
     tm = match.DeviceMatcher(Xp, device="cpu")
     assert calls == [(tm.Ng, tm.Mp)]
+
+
+def _jax_ranks(seed, Ng, Mp):
+    """(U, C) of the JAX package's panel_trajectory over random group words
+    with long equal runs, as the port lays them out."""
+    rng = np.random.RandomState(seed)
+    W = rng.randint(0, 2**32, size=(Ng, Mp), dtype=np.uint32).astype(np.int32)
+    W[:, : Mp // 3] = W[:, :1]
+    a0 = np.arange(Mp, dtype=np.int32)
+    d0 = np.zeros(Mp, np.int32)
+    d0[0] = 1
+    a_end, A_pre, D8, _, U8, C = match_jax.panel_trajectory(
+        jnp.asarray(W), jnp.asarray(a0), jnp.asarray(d0))
+    _, _, U, C = convert.trajectory_from_jax(
+        *(np.asarray(x) for x in (a_end, A_pre, D8, U8, C)))
+    return torch.from_numpy(np.ascontiguousarray(U)), \
+        torch.from_numpy(np.ascontiguousarray(C))
+
+
+def _assert_plane_gives(plane, U, C):
+    """Every position 0..Mp of every site reads U, and C at Mp."""
+    Ns, Mp = U.shape
+    got = match.plane_rank(plane, torch.arange(Mp + 1))
+    assert got.shape == (Ns, Mp + 1)
+    assert torch.equal(got[:, :Mp], U.long())
+    assert torch.equal(got[:, Mp], C.long())
+
+
+@pytest.mark.parametrize("rows", [2048, 4096])
+def test_rank_plane_reads_back_jax_ranks(rows):
+    """The rank plane's twin on U and C of the JAX trajectory."""
+    U, C = _jax_ranks(rows, 2, rows)
+    assert U.shape == (64, rows)
+    plane = match.rank_plane(U, C)
+    assert plane.shape == (U.shape[0], match.plane_blocks(rows),
+                           match.PLANE_WORDS)
+    assert plane.dtype == torch.int32
+    _assert_plane_gives(plane, U, C)
+
+
+@pytest.mark.parametrize("words", [2, 4, 8])
+def test_rank_plane_block_widths(jax_matcher, words):
+    """Blocks of 32, 96 and 224 rows (the last block whole or ragged) on
+    the JAX trajectory's tables."""
+    _, jm = jax_matcher
+    _, _, U, C = _trajectory_from_jax(jm)
+    plane = match.rank_plane_plain(U, C, words)
+    assert plane.shape == (U.shape[0], match.plane_blocks(jm.Mp, words),
+                           words)
+    _assert_plane_gives(plane, U, C)
+
+
+def test_rank_plane_through_port_padding(jax_matcher):
+    """A ragged panel (300 rows) through the port's own padding: the
+    matcher's plane reads back the ranks of its own trajectory at every
+    position, and its zero counts, less the pad rows', are the JAX
+    trajectory's."""
+    Xp, jm = jax_matcher
+    tm = match.DeviceMatcher(Xp, device="cpu")
+    W = match._BITREV[tm.xp_words.view(torch.uint8).long()] \
+        .view(torch.int32).t().contiguous()
+    a0 = torch.arange(tm.Mp, dtype=torch.int32)
+    d0 = torch.zeros(tm.Mp, dtype=torch.int32)
+    d0[0] = 1
+    _, _, U, C = match.panel_trajectory(W, a0, d0)
+    assert torch.equal(C, tm.C)
+    _assert_plane_gives(tm.plane, U, C)
+    # pad rows copy row 0, so rank(Mp) - rank(0..) counts them where row 0
+    # is zero: the real rows' zeros are the JAX trajectory's
+    _, _, _, C_j = _trajectory_from_jax(jm)
+    x0 = np.ones(U.shape[0], np.int64)
+    x0[:N] = Xp[0] == 0
+    at_mp = match.plane_rank(tm.plane, torch.tensor([tm.Mp]))[:, 0].numpy()
+    assert np.array_equal(at_mp - (tm.Mp - M) * x0,
+                          C_j.numpy() - (jm.Mp - M) * x0)
+
+
+def test_matcher_makes_one_plane_a_trajectory(jax_matcher, monkeypatch):
+    """DeviceMatcher packs the rank table once a panel, and a batch of
+    queries packs nothing."""
+    Xp, _ = jax_matcher
+    calls = []
+    real = match.rank_plane
+    monkeypatch.setattr(match, "rank_plane",
+                        lambda U, C: calls.append(U.shape) or real(U, C))
+    tm = match.DeviceMatcher(Xp, device="cpu")
+    assert calls == [(tm.Ng * 32, tm.Mp)]
+    tm.match(queries(Xp, 5, 4))
+    assert len(calls) == 1 and not hasattr(tm, "U")
