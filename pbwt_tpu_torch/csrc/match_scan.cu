@@ -23,28 +23,28 @@
 // chain to itself:
 //   * Ranks come from a bit plane, not from the int32 table U. U[k][i] is the
 //     number of zeros of site k before position i: a rank over a bit vector.
-//     k3_rank_plane stores it as blocks of PLANE_ROWS rows, each one aligned
-//     group of words {rank at the block's start, the block's zero bits}, with
-//     one block more so that position Mp reads the site's count. A rank is
-//     one aligned load and a few __popc. At 4 words a block the plane is
-//     Mp x Ns / 6 bytes, 1/24 of U: 34 MB at 100,352 x 2,048 where U is
-//     822 MB, so a site's load is an L2 hit in a 17 KB slice instead of a
-//     miss to device memory 400 KB on. A dependent load costs the same up to
-//     24 MB of plane, 7% more at 34 MB and a third more at 48 MB
-//     (Mp x Ns = 2.9e8), where the plane begins to leave the 50 MB L2; blocks
-//     of 8 words (Mp x Ns / 7 bytes) and of 2 (Mp x Ns / 4) were no faster.
-//   * A query belongs to a group of K3_LANES lanes and the groups are spread
-//     over every SM (a block is two warps; a group takes queries j, j + G,
-//     ...). In the FM step the group's even lanes read the rank at f and the
-//     odd ones at g, one load instruction, shared by shuffle; C[k + 1] and
-//     the query's next 32 sites are fetched a step ahead, off the chain.
-//   * The reset is done by the group: its first loads (D[k][f'], both
-//     candidates of A[k+1], and the first K3_LANES entries of either walk)
-//     go out together; the backward extension compares K3_LANES words of the
-//     query and the haplotype a step and finds the highest differing one by
-//     ballot; the widening walk tests K3_LANES entries of D[k] a step. With
-//     a whole warp a query a collapse holds no other query; groups of 8 and
-//     16 lanes were slower at every batch size tried.
+//     k3_rank_plane stores it as blocks of 96 rows, each one aligned int4
+//     {rank at the block's start, the block's zero bits}, with one block more
+//     so that position Mp reads the site's count. A rank is one aligned load
+//     and three __popc. The plane is Mp x Ns / 6 bytes, 1/24 of U: 34 MB at
+//     100,352 x 2,048 where U is 822 MB, so a site's load is an L2 hit in a
+//     17 KB slice instead of a miss to device memory 400 KB on. A dependent
+//     load costs the same up to 24 MB of plane, 5% more at 34 MB and a third
+//     more at 48 MB (Mp x Ns = 2.9e8), where the plane begins to leave the
+//     50 MB L2; blocks of 8 words (Mp x Ns / 7 bytes) and of 2 (Mp x Ns / 4)
+//     were no faster.
+//   * A query belongs to a whole warp and the warps are spread over every SM
+//     (a block is two warps; a warp takes queries j, j + G, ...). In the FM
+//     step the even lanes read the rank at f and the odd ones at g, one load
+//     instruction, shared by shuffle; C[k + 1] and the query's next 32 sites
+//     are fetched a step ahead, off the chain.
+//   * The reset is done by the warp: its first loads (D[k][f'], both
+//     candidates of A[k+1], and the first 32 entries of either walk) go out
+//     together; the backward extension compares 32 words of the query and
+//     the haplotype a step and finds the highest differing one by ballot;
+//     the widening walk tests 32 entries of D[k] a step. A collapse holds no
+//     other query; groups of 8 and 16 lanes a query were slower at every
+//     batch size tried.
 // What a site costs, what the card's dependent load costs and what each of
 // these choices gave is measured by tools/k3_probe.py and written down in
 // PERF.md: about half of a site is the load, a third the step's own
@@ -57,9 +57,10 @@
 
 namespace {
 
-constexpr int K3_LANES = 32;    // lanes a query: 8, 16 or 32
-constexpr int K3_THREADS = 64;  // threads a block of the scan
-constexpr int PLANE_WORDS = 4;  // int32 words a block of the plane: 2, 4 or 8
+constexpr int K3_LANES = 32;             // lanes a query: the warp
+constexpr unsigned GROUP = 0xffffffffu;  // their mask
+constexpr int K3_THREADS = 64;           // threads a block of the scan
+constexpr int PLANE_WORDS = 4;  // int32 words a block of the plane: one int4
 constexpr int PLANE_ROWS = 32 * (PLANE_WORDS - 1);
 constexpr int PLANE_THREADS = 256;
 
@@ -82,33 +83,19 @@ __device__ __forceinline__ unsigned low_bits(int n) {  // the n lowest bits, any
 // Zeros of a site before position i (0 <= i <= mp): one block of its slice.
 __device__ __forceinline__ int plane_rank(const int* __restrict__ site, int i) {
   int b = i / PLANE_ROWS, r = i - b * PLANE_ROWS;
-  if constexpr (PLANE_WORDS == 2) {
-    int2 w = __ldg(reinterpret_cast<const int2*>(site) + b);
-    return w.x + __popc((unsigned)w.y & low_bits(r));
-  } else {
-    const int4* p = reinterpret_cast<const int4*>(site) + (size_t)b * (PLANE_WORDS / 4);
-    int4 w = __ldg(p);
-    int rank = w.x + __popc((unsigned)w.y & low_bits(r)) +
-               __popc((unsigned)w.z & low_bits(r - 32)) + __popc((unsigned)w.w & low_bits(r - 64));
-    if constexpr (PLANE_WORDS == 8) {
-      int4 v = __ldg(p + 1);
-      rank += __popc((unsigned)v.x & low_bits(r - 96)) + __popc((unsigned)v.y & low_bits(r - 128)) +
-              __popc((unsigned)v.z & low_bits(r - 160)) + __popc((unsigned)v.w & low_bits(r - 192));
-    }
-    return rank;
-  }
+  int4 w = __ldg(reinterpret_cast<const int4*>(site) + b);
+  return w.x + __popc((unsigned)w.y & low_bits(r)) + __popc((unsigned)w.z & low_bits(r - 32)) +
+         __popc((unsigned)w.w & low_bits(r - 64));
 }
 
-// The reset of one query that collapsed at site k by its group (t: lane of
-// the group, gmask: the group's lanes in the warp). Returns the new (e, f, g).
-// Not inlined, and the rows of D and A are found in here: the scan's loop
-// then carries nothing for it.
-template <int L>
+// The reset of one query that collapsed at site k by its warp (t: the lane).
+// Returns the new (e, f, g). Not inlined, and the rows of D and A are found in
+// here: the scan's loop then carries nothing for it.
 __device__ __noinline__ int3 group_reset(const int* __restrict__ D, const int* __restrict__ A,
                                          const int* __restrict__ xq,
                                          const int* __restrict__ xp_words, int k, int f1, int g1,
-                                         int mp, int nw, int t, unsigned gmask) {
-  const int base = (threadIdx.x & 31) - t;  // the group's first lane
+                                         int mp, int nw, int t) {
+  constexpr int L = K3_LANES;
   const int* dk = D + (size_t)k * mp;       // D[k], and A[k + 1]: the order after site k
   const int* ak = A + (size_t)(k + 1) * mp;
   // everything whose address is known now, in one round: the divergence at
@@ -133,9 +120,9 @@ __device__ __noinline__ int3 group_reset(const int* __restrict__ D, const int* _
         v = site_order((unsigned)(xq[w] ^ xp[w]));
         if (w == (j >> 5)) v &= low_bits((j & 31) + 1);
       }
-      unsigned hit = __ballot_sync(gmask, v != 0);
+      unsigned hit = __ballot_sync(GROUP, v != 0);
       if (hit) {
-        last = __shfl_sync(gmask, 32 * w + 31 - __clz(v), __ffs(hit) - 1);
+        last = __shfl_sync(GROUP, 32 * w + 31 - __clz(v), __ffs(hit) - 1);
         break;
       }
     }
@@ -146,9 +133,9 @@ __device__ __noinline__ int3 group_reset(const int* __restrict__ D, const int* _
   if (branch_a) {
     int fn = g1 - 1;
     for (int dv = da;;) {
-      unsigned stop = __ballot_sync(gmask, dv > e1);
+      unsigned stop = __ballot_sync(GROUP, dv > e1);
       if (stop) {
-        fn -= __ffs(stop) - 1 - base;
+        fn -= __ffs(stop) - 1;
         break;
       }
       fn -= L;
@@ -158,9 +145,9 @@ __device__ __noinline__ int3 group_reset(const int* __restrict__ D, const int* _
   }
   int gn = f1 + 1;
   for (int dv = db;;) {
-    unsigned stop = __ballot_sync(gmask, dv > e1);
+    unsigned stop = __ballot_sync(GROUP, dv > e1);
     if (stop) {
-      gn += __ffs(stop) - 1 - base;
+      gn += __ffs(stop) - 1;
       break;
     }
     gn += L;
@@ -169,16 +156,14 @@ __device__ __noinline__ int3 group_reset(const int* __restrict__ D, const int* _
   return make_int3(e1, f1, gn);
 }
 
-template <int L>
 __global__ void __launch_bounds__(K3_THREADS)
 k3_scan(const int* __restrict__ plane, size_t plane_stride, const int* __restrict__ D,
         const int* __restrict__ A, const int* __restrict__ C, const int* __restrict__ xq_words,
         const int* __restrict__ xp_words, int ns, int mp, int nq, int nw, int* __restrict__ e_io,
         int* __restrict__ f_io, int* __restrict__ g_io, int* __restrict__ rec, int cap,
         int* __restrict__ nrec) {
-  const int lane = threadIdx.x & 31;
-  const int t = lane & (L - 1);
-  const unsigned gmask = L == 32 ? 0xffffffffu : ((1u << L) - 1u) << (lane - t);
+  constexpr int L = K3_LANES;
+  const int t = threadIdx.x & 31;  // lane of the query's warp
   const int groups = gridDim.x * (K3_THREADS / L);
   for (int q = blockIdx.x * (K3_THREADS / L) + threadIdx.x / L; q < nq; q += groups) {
     const int* xq = xq_words + (size_t)q * nw;
@@ -200,7 +185,7 @@ k3_scan(const int* __restrict__ plane, size_t plane_stride, const int* __restric
         const bool x = (xw >> s) & 1;
         // the chain: even lanes rank f, odd lanes g
         int u = plane_rank(site, (t & 1) ? g : f);
-        int uf = __shfl_sync(gmask, u, 0, L), ug = __shfl_sync(gmask, u, 1, L);
+        int uf = __shfl_sync(GROUP, u, 0), ug = __shfl_sync(GROUP, u, 1);
         int f1 = x ? c + f - uf : uf;
         int g1 = x ? c + g - ug : ug;
         if (g1 > f1) {
@@ -219,7 +204,7 @@ k3_scan(const int* __restrict__ plane, size_t plane_stride, const int* __restric
             o[4] = g;
           }
         }
-        int3 r = group_reset<L>(D, A, xq, xp_words, k, f1, g1, mp, nw, t, gmask);
+        int3 r = group_reset(D, A, xq, xp_words, k, f1, g1, mp, nw, t);
         e = r.x;
         f = r.y;
         g = r.z;
@@ -267,10 +252,8 @@ k3_plane(const int* __restrict__ U, const int* __restrict__ C, int ns, int mp, i
 extern "C" {
 
 // What the wrappers must know of the layout: 1: int32 words a block of the
-// rank plane; 2: lanes a query.
-int k3_plane_layout(int which) {
-  return which == 1 ? PLANE_WORDS : which == 2 ? K3_LANES : 0;
-}
+// rank plane.
+int k3_plane_layout(int which) { return which == 1 ? PLANE_WORDS : 0; }
 
 // The rank plane of a trajectory. U (ns, mp) int32 exclusive zero ranks, C
 // (ns,) zero counts; plane (ns, mp / PLANE_ROWS + 1, PLANE_WORDS) int32,
@@ -305,7 +288,7 @@ int k3_match_scan(int device, const int* plane, const int* D, const int* A, cons
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k3_scan<K3_LANES>, K3_THREADS, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k3_scan, K3_THREADS, 0);
   if (err != cudaSuccess) return (int)err;
   // as many blocks as the card holds at once, or fewer if the queries need
   // fewer; a group of lanes takes the queries j, j + groups, ...
@@ -314,7 +297,7 @@ int k3_match_scan(int device, const int* plane, const int* D, const int* A, cons
   long long fit = (long long)per_sm * sms;
   int nb = (int)(want < fit ? want : fit);
   size_t plane_stride = (size_t)(mp / PLANE_ROWS + 1) * PLANE_WORDS;
-  k3_scan<K3_LANES><<<nb, K3_THREADS, 0, (cudaStream_t)stream>>>(
+  k3_scan<<<nb, K3_THREADS, 0, (cudaStream_t)stream>>>(
       plane, plane_stride, D, A, C, xq_words, xp_words, ns, mp, nq, nw, e, f, g, rec, cap, nrec);
   return (int)cudaGetLastError();
 }

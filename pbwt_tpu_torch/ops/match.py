@@ -69,16 +69,15 @@ def panel_trajectory(W: torch.Tensor, a0: torch.Tensor, d0: torch.Tensor):
     return ad_trajectory(W, a0, d0)
 
 
-def plane_blocks(Mp: int, words: int = PLANE_WORDS) -> int:
+def plane_blocks(Mp: int) -> int:
     """Blocks a site of the rank plane: position Mp has a block too."""
-    return Mp // (32 * (words - 1)) + 1
+    return Mp // (32 * (PLANE_WORDS - 1)) + 1
 
 
-def rank_plane_plain(U: torch.Tensor, C: torch.Tensor,
-                     words: int = PLANE_WORDS) -> torch.Tensor:
+def rank_plane_plain(U: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """Plain twin of :func:`rank_plane`, 256 sites at a time."""
     Ns, Mp = U.shape
-    nblk, rows = plane_blocks(Mp, words), 32 * (words - 1)
+    words, nblk, rows = PLANE_WORDS, plane_blocks(Mp), 32 * (PLANE_WORDS - 1)
     plane = torch.empty((Ns, nblk, words), dtype=torch.int32, device=U.device)
     weight = torch.ones(32, dtype=torch.int64, device=U.device) \
         << torch.arange(32, device=U.device)

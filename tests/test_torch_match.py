@@ -213,16 +213,21 @@ def test_rank_plane_reads_back_jax_ranks(rows):
     _assert_plane_gives(plane, U, C)
 
 
-@pytest.mark.parametrize("words", [2, 4, 8])
-def test_rank_plane_block_widths(jax_matcher, words):
-    """Blocks of 32, 96 and 224 rows (the last block whole or ragged) on
-    the JAX trajectory's tables."""
-    _, jm = jax_matcher
-    _, _, U, C = _trajectory_from_jax(jm)
-    plane = match.rank_plane_plain(U, C, words)
-    assert plane.shape == (U.shape[0], match.plane_blocks(jm.Mp, words),
-                           words)
-    _assert_plane_gives(plane, U, C)
+@pytest.mark.parametrize("blocks", [2, 4, 8])
+def test_rank_plane_block_widths(blocks):
+    """Tables 2, 4 and 8 blocks wide whose rows end just inside a block, at
+    its end (position Mp then has a block to itself) and just beyond it."""
+    rows_a_block = 32 * (match.PLANE_WORDS - 1)
+    rng = np.random.RandomState(blocks)
+    for Mp in (rows_a_block * (blocks - 1) + off for off in (-1, 0, 1)):
+        zero = rng.randint(0, 2, size=(40, Mp)).astype(np.int32)
+        zero[:, : Mp // 3] = zero[:, :1]
+        ranks = np.cumsum(zero, axis=1, dtype=np.int32)
+        U = torch.from_numpy(np.ascontiguousarray(ranks - zero))
+        C = torch.from_numpy(np.ascontiguousarray(ranks[:, -1]))
+        plane = match.rank_plane(U, C)
+        assert plane.shape == (40, Mp // rows_a_block + 1, match.PLANE_WORDS)
+        _assert_plane_gives(plane, U, C)
 
 
 def test_rank_plane_through_port_padding(jax_matcher):

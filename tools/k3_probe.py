@@ -16,7 +16,8 @@ check     prints what ptxas says of match_scan.cu (registers, spills), builds
           L1) and holds k3_rank_plane and K3 of each against the plain twins
           on small panels (Q = 1, 24, 33, and a record cap that overflows).
           Stops at the first difference.
-chase     a pointer chase: the latency of one dependent load from L2 (one
+chase     a pointer chase (chip_smoke.py's, which takes K3's chain floor
+          with it): the latency of one dependent load from L2 (one
           thread over a random cycle through the sectors of a buffer that
           every SM has read, from 4 MB up to sizes that no longer fit, on a
           stretch the chasing SM has not walked; then a whole warp loading
@@ -34,8 +35,11 @@ variants  on the matching slice's panel (100,000 x 2,048, bench.py's
           site's instructions alone); the int32 table U read in place of
           the plane; a persisting-L2 access window on the plane. The cuts
           compute something else than the scan: only their times mean
-          anything. All copies are made by replacing lines of the source,
-          and the probe stops if a line it looks for has changed.
+          anything. All copies are made by replacing lines of the source
+          (the package keeps only the design it runs: a warp a query, blocks
+          of 4 words; groups of 8 and 16 lanes and blocks of 2 and 8 words
+          are written here), and the probe stops if a line it looks for has
+          changed.
 parts     DeviceMatcher.match at Q = 1,024 on that panel, stage by stage on
           the host's clock with the card synchronised between stages: host
           packing, upload, buffer fill, K3, the read of the record count,
@@ -44,6 +48,7 @@ The probe calls the C entries directly, so that a copy's layout need not be
 the package's.
 """
 
+import contextlib
 import ctypes
 import os
 import subprocess
@@ -59,17 +64,8 @@ BATCHES = (256, 1_024, 4_096)
 TABLE_STRIDE = 100_352              # ints a row of the int32 rank table
 CHASE_STEPS = 1 << 15
 
-CHASE_SOURCE = r"""
-#include <cuda_runtime.h>
-
-// one thread, one chain: every load's address is the value the last one
-// returned; L1 is bypassed
-__global__ void chase(const int* __restrict__ p, int start, int steps, int* out) {
-  int i = start;
-  for (int s = 0; s < steps; ++s) i = __ldcg(p + i);
-  *out = i;
-}
-
+# added to chip_smoke.py's chase source
+WARP_CHASE_SOURCE = r"""
 // a whole warp, 16 bytes a lane, as K3 loads: the even lanes follow one chain
 // and the odd lanes another (the same one if both start alike), and a step
 // ends when both loads are back
@@ -79,37 +75,65 @@ __global__ void chase_warp(const int* __restrict__ p, int even, int odd, int ste
   if (threadIdx.x < 2) out[threadIdx.x] = i;
 }
 
-// every SM reads the whole buffer through L2, as the scan's warps do
-__global__ void touch(const int4* __restrict__ p, size_t n, int* out) {
-  int acc = 0;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    int4 v = __ldcg(p + i);
-    acc += v.x ^ v.y ^ v.z ^ v.w;
-  }
-  if (acc == 0x7fffffff) *out = acc;
-}
-
-extern "C" int k3_chase(const int* p, int start, int steps, int* out, void* stream) {
-  chase<<<1, 1, 0, (cudaStream_t)stream>>>(p, start, steps, out);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int k3_chase_warp(const int* p, int even, int odd, int steps, int* out,
                              void* stream) {
   chase_warp<<<1, 32, 0, (cudaStream_t)stream>>>(p, even, odd, steps, out);
   return (int)cudaGetLastError();
 }
-
-extern "C" int k3_touch(const int* p, long long ints, int* out, void* stream) {
-  touch<<<1056, 256, 0, (cudaStream_t)stream>>>((const int4*)p, (size_t)ints / 4, out);
-  return (int)cudaGetLastError();
-}
 """
 
-LANES = "constexpr int K3_LANES = 32;"
-WORDS = "constexpr int PLANE_WORDS = 4;"
-THREADS = "constexpr int K3_THREADS = 64;"
+THREADS = "constexpr int K3_THREADS = 64;           // threads"
+LOAD = "  int4 w = __ldg(reinterpret_cast<const int4*>(site) + b);\n"
+RANK = LOAD + (
+    "  return w.x + __popc((unsigned)w.y & low_bits(r)) + "
+    "__popc((unsigned)w.z & low_bits(r - 32)) +\n"
+    "         __popc((unsigned)w.w & low_bits(r - 64));\n")
+
+
+def lanes(n):
+    """The source's changes for groups of n < 32 lanes a query: the group's
+    mask and lane, shuffles within the group, ballots counted from its
+    first lane."""
+    base = "((threadIdx.x & 31) - t)"
+    return [
+        ("constexpr int K3_LANES = 32;  ", f"constexpr int K3_LANES = {n};  "),
+        ("constexpr unsigned GROUP = 0xffffffffu;",
+         "#define GROUP (((1u << K3_LANES) - 1u) << "
+         "((threadIdx.x & 31) & ~(K3_LANES - 1))) //"),
+        ("  const int t = threadIdx.x & 31;  ",
+         "  const int t = threadIdx.x & (K3_LANES - 1);  "),
+        ("        int uf = __shfl_sync(GROUP, u, 0), ug = "
+         "__shfl_sync(GROUP, u, 1);\n",
+         "        int uf = __shfl_sync(GROUP, u, 0, L), ug = "
+         "__shfl_sync(GROUP, u, 1, L);\n"),
+        ("        fn -= __ffs(stop) - 1;\n",
+         f"        fn -= __ffs(stop) - 1 - {base};\n"),
+        ("      gn += __ffs(stop) - 1;\n",
+         f"      gn += __ffs(stop) - 1 - {base};\n"),
+    ]
+
+
+def words(n):
+    """The source's changes for blocks of n int32 words (2 or 8) of the
+    rank plane."""
+    if n == 2:
+        rank = ("  int2 w = __ldg(reinterpret_cast<const int2*>(site) + b);\n"
+                "  return w.x + __popc((unsigned)w.y & low_bits(r));\n")
+    else:
+        rank = (
+            "  const int4* p = reinterpret_cast<const int4*>(site) + 2 * b;\n"
+            "  int4 w = __ldg(p), v = __ldg(p + 1);\n"
+            "  return w.x + __popc((unsigned)w.y & low_bits(r)) +\n"
+            "         __popc((unsigned)w.z & low_bits(r - 32)) +\n"
+            "         __popc((unsigned)w.w & low_bits(r - 64)) +\n"
+            "         __popc((unsigned)v.x & low_bits(r - 96)) +\n"
+            "         __popc((unsigned)v.y & low_bits(r - 128)) +\n"
+            "         __popc((unsigned)v.z & low_bits(r - 160)) +\n"
+            "         __popc((unsigned)v.w & low_bits(r - 192));\n")
+    return [("constexpr int PLANE_WORDS = 4;  ",
+             f"constexpr int PLANE_WORDS = {n};  "), (RANK, rank)]
+
+
 STRIDE = ("  size_t plane_stride = (size_t)(mp / PLANE_ROWS + 1) * "
           "PLANE_WORDS;\n")
 PERSIST = STRIDE + r"""  {
@@ -136,15 +160,15 @@ PERSIST = STRIDE + r"""  {
 # compute the scan itself and are held against the twin by `check`
 SAME = {
     "as_is": [],
-    "lanes_8": [(LANES, "constexpr int K3_LANES = 8;")],
-    "lanes_16": [(LANES, "constexpr int K3_LANES = 16;")],
-    "words_2": [(WORDS, "constexpr int PLANE_WORDS = 2;")],
-    "words_8": [(WORDS, "constexpr int PLANE_WORDS = 8;")],
-    "threads_32": [(THREADS, "constexpr int K3_THREADS = 32;")],
-    "threads_128": [(THREADS, "constexpr int K3_THREADS = 128;")],
+    "lanes_8": lanes(8),
+    "lanes_16": lanes(16),
+    "words_2": words(2),
+    "words_8": words(8),
+    "threads_32": [(THREADS, "constexpr int K3_THREADS = 32;  // threads")],
+    "threads_128": [(THREADS, "constexpr int K3_THREADS = 128;  // threads")],
     "two_loads": [("        int u = plane_rank(site, (t & 1) ? g : f);\n", ""),
-                  ("        int uf = __shfl_sync(gmask, u, 0, L), ug = "
-                   "__shfl_sync(gmask, u, 1, L);\n",
+                  ("        int uf = __shfl_sync(GROUP, u, 0), ug = "
+                   "__shfl_sync(GROUP, u, 1);\n",
                    "        int uf = plane_rank(site, f), ug = "
                    "plane_rank(site, g);\n")],
     "two_lanes": [("        int u = plane_rank(site, (t & 1) ? g : f);\n",
@@ -152,11 +176,11 @@ SAME = {
                    "        if (t < 2) u = plane_rank(site, t ? g : f);\n")],
     "unroll_1": [("#pragma unroll 4\n", "#pragma unroll 1\n")],
     "unroll_8": [("#pragma unroll 4\n", "#pragma unroll 8\n")],
-    "bypass_l1": [("    int4 w = __ldg(p);\n", "    int4 w = __ldcg(p);\n")],
+    "bypass_l1": [(LOAD, LOAD.replace("__ldg", "__ldcg"))],
 }
 CUTS = {
-    "no_reset": [("        int3 r = group_reset<L>(D, A, xq, xp_words, k, f1, "
-                  "g1, mp, nw, t, gmask);\n",
+    "no_reset": [("        int3 r = group_reset(D, A, xq, xp_words, k, f1, "
+                  "g1, mp, nw, t);\n",
                   "        int3 r = make_int3(k + 1, 0, mp);\n")],
     "u_table": [("      for (int s = 0; s < send; ++s, site += plane_stride) {\n",
                  "      for (int s = 0; s < send; ++s, site += mp) {\n"),
@@ -168,10 +192,21 @@ CUTS = {
 # a site's instructions alone: the rank made up from the position, no load of
 # the plane, and no reset (whose loads would go astray)
 CUTS["no_load"] = CUTS["no_reset"] + [
-    ("    int4 w = __ldg(p);\n",
-     "    int4 w = make_int4(b * 48, 0x55555555, 0x55555555,\n"
-     "                       0x55555555 + 0 * (int)(size_t)p);\n")]
+    (LOAD,
+     "  int4 w = make_int4(b * 48, 0x55555555, 0x55555555,\n"
+     "                     0x55555555 + 0 * (int)(size_t)site);\n")]
 PLANE_WORDS_OF = {"words_2": 2, "words_8": 8}
+
+
+@contextlib.contextmanager
+def plane_words(match, words):
+    """The package's plain twins lay the rank plane out in blocks of `words`
+    int32 inside the block."""
+    old, match.PLANE_WORDS = match.PLANE_WORDS, words
+    try:
+        yield
+    finally:
+        match.PLANE_WORDS = old
 
 
 def say(tag, **kv):
@@ -210,43 +245,26 @@ def build_shared(kernels, tmp, sources):
     return libs
 
 
-# ---- the pointer chase (chip_smoke.py takes its chain floor from here) ----
+# ---- the pointer chase: chip_smoke.py's, and a warp's beside it ----
 
 def chase_library(kernels):
-    """The chase library: k3_chase, and k3_touch, which warms a buffer."""
-    with tempfile.TemporaryDirectory(prefix="k3_probe_") as tmp:
-        lib = build_shared(kernels, tmp, {"chase": CHASE_SOURCE})["chase"]
+    """chip_smoke.py's chase library with k3_chase_warp added."""
+    import chip_smoke
+    lib = chip_smoke.chase_library(
+        kernels, chip_smoke.CHASE_SOURCE + WARP_CHASE_SOURCE)
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.k3_chase.argtypes, lib.k3_chase.restype = [P, I, I, P, P], I
     lib.k3_chase_warp.argtypes, lib.k3_chase_warp.restype = [P, I, I, I, P, P], I
-    lib.k3_touch.argtypes = [P, ctypes.c_longlong, P, P]
-    lib.k3_touch.restype = I
     return lib
 
 
-def _touch(torch, kernels, lib, p):
-    """Read p (a multiple of four ints) into L2 from every SM, twice."""
-    out = torch.zeros(1, dtype=torch.int32, device=p.device)
-    for _ in range(2):
-        err = lib.k3_touch(p.data_ptr(), p.numel(), out.data_ptr(),
-                           kernels.stream(p.device))
-        if err:
-            sys.exit(f"k3_probe: touch launch failed, cudaError_t {err}")
-    torch.cuda.synchronize()
-
-
-def _chase_ns(torch, kernels, lib, p, start, steps, odd=None):
-    """One thread from `start`; or, with `odd`, a warp of 16-byte loads
-    whose even lanes start at `start` and odd lanes at `odd`."""
+def chase_warp_ns(torch, kernels, lib, p, even, odd, steps):
+    """A warp of 16-byte loads whose even lanes start at `even` and odd
+    lanes at `odd`: nanoseconds a step."""
     out = torch.zeros(2, dtype=torch.int32, device=p.device)
     ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
     ev[0].record()
-    if odd is None:
-        err = lib.k3_chase(p.data_ptr(), start, steps, out.data_ptr(),
-                           kernels.stream(p.device))
-    else:
-        err = lib.k3_chase_warp(p.data_ptr(), start, odd, steps,
-                                out.data_ptr(), kernels.stream(p.device))
+    err = lib.k3_chase_warp(p.data_ptr(), even, odd, steps, out.data_ptr(),
+                            kernels.stream(p.device))
     if err:
         sys.exit(f"k3_probe: chase launch failed, cudaError_t {err}")
     ev[1].record()
@@ -263,16 +281,19 @@ def l2_latency_ns(torch, kernels, lib, dev, nbytes, steps=CHASE_STEPS,
     wherever in L2 the sectors lie, near or far from that SM. warp: None
     one thread; "one" a warp of 16-byte loads of one address; "two" its even
     and odd lanes on two stretches of the cycle."""
+    import chip_smoke
     nsec = max(nbytes // 32, 4 * steps)
     g = torch.Generator(device=dev).manual_seed(nsec)
     idx = (torch.randperm(nsec, generator=g, device=dev) * 8).to(torch.int32)
     p = torch.zeros(nsec * 8, dtype=torch.int32, device=dev)
     p[idx.long()] = idx.roll(-1)
-    _chase_ns(torch, kernels, lib, p, int(idx[0]), steps)    # warm-up
-    _touch(torch, kernels, lib, p)
-    odd = {None: None, "one": 2 * steps, "two": 3 * steps}[warp]
-    return _chase_ns(torch, kernels, lib, p, int(idx[2 * steps]), steps,
-                     None if odd is None else int(idx[odd]))
+    chip_smoke.chase_ns(torch, kernels, lib, p, int(idx[0]), steps)  # warm-up
+    chip_smoke.touch(torch, kernels, lib, p)
+    start = int(idx[2 * steps])
+    if warp is None:
+        return chip_smoke.chase_ns(torch, kernels, lib, p, start, steps)
+    odd = int(idx[{"one": 2 * steps, "two": 3 * steps}[warp]])
+    return chase_warp_ns(torch, kernels, lib, p, start, odd, steps)
 
 
 def flush_l2(torch, dev):
@@ -282,22 +303,18 @@ def flush_l2(torch, dev):
 
 def table_latency_ns(torch, kernels, lib, dev, stride=TABLE_STRIDE,
                      steps=2_048, warm=False):
-    """Nanoseconds a dependent load that walks a table as the scan does: one
-    load a row of `stride` ints, at a random column, the rows in address
-    order. warm=False: L2 flushed first, so every load goes to device
-    memory; warm=True: the table (a multiple of four ints) read into L2
-    first by every SM, so the loads hit wherever in L2 the sectors lie."""
-    g = torch.Generator(device=dev).manual_seed(stride)
-    col = torch.randint(stride, (steps + 1,), generator=g, device=dev)
-    pos = (torch.arange(steps + 1, device=dev) * stride + col)
-    p = torch.zeros((steps + 1) * stride, dtype=torch.int32, device=dev)
-    p[pos[:-1]] = pos[1:].to(torch.int32)
-    _chase_ns(torch, kernels, lib, p, int(pos[0]), 16)    # the kernel's code
+    """Nanoseconds a dependent load that walks a table as the scan does
+    (chip_smoke.py's row_walk). warm=False: L2 flushed first, so every load
+    goes to device memory; warm=True: the table read into L2 first by every
+    SM, as chip_smoke.py's chain floor is taken."""
+    import chip_smoke
+    p, start = chip_smoke.row_walk(torch, dev, stride, steps)
+    chip_smoke.chase_ns(torch, kernels, lib, p, start, 16)  # the kernel's code
     if warm:
-        _touch(torch, kernels, lib, p)
+        chip_smoke.touch(torch, kernels, lib, p)
     else:
         flush_l2(torch, dev)
-    return _chase_ns(torch, kernels, lib, p, int(pos[0]), steps)
+    return chip_smoke.chase_ns(torch, kernels, lib, p, start, steps)
 
 
 # ---- the scan through the C entries of any copy of the source ----
@@ -335,9 +352,8 @@ class Probe:
 
     def plane(self, lib, U, C, words):
         Ns, Mp = U.shape
-        plane = self.torch.empty((Ns, self.match.plane_blocks(Mp, words),
-                                  words), dtype=self.torch.int32,
-                                 device=self.dev)
+        plane = self.torch.empty((Ns, Mp // (32 * (words - 1)) + 1, words),
+                                 dtype=self.torch.int32, device=self.dev)
         err = lib.k3_rank_plane(0, U.data_ptr(), C.data_ptr(), Ns, Mp,
                                 plane.data_ptr(),
                                 self.kernels.stream(self.dev))
@@ -406,7 +422,8 @@ class Probe:
             for name, lib in libs.items():
                 words = PLANE_WORDS_OF.get(name, match.PLANE_WORDS)
                 plane = self.plane(lib, U, m.C, words)
-                twin = match.rank_plane_plain(U, m.C, words)
+                with plane_words(match, words):
+                    twin = match.rank_plane_plain(U, m.C)
                 if not torch.equal(plane, twin):
                     sys.exit(f"k3_probe: {name}: the plane differs from its "
                              f"twin's at {M} x {N}")
