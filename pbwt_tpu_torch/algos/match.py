@@ -149,6 +149,33 @@ def match_sequences_indexed(p: PBWT, q: PBWT, report=report_match_stdout,
         f"Average length {tot_len / n_tot:.1f}")
 
 
+def match_sequences_sweep_rows(p: PBWT, q: PBWT):
+    """The native sweep's match set as an (n, 4) int64 ndarray
+    [iq, j_panel, start, end] in report order, or None when the native
+    engine is unavailable (callers fall back to the callback sweep).
+
+    Logs the same summary line as match_sequences_sweep
+    (pbwtMatch.c:443-445) so pipeline stderr is unchanged."""
+    if q.N != p.N:
+        raise ValueError(f"query length {q.N} != PBWT length {p.N}")
+    M, N, QM = p.M, p.N, q.M
+    ap0 = p.aFstart if p.aFstart is not None else np.arange(M, dtype=np.int32)
+    aq0 = q.aFstart if q.aFstart is not None else np.arange(QM, dtype=np.int32)
+    if p.yz and q.yz:
+        rows = native.sweep_match_packed(p.yz, M, q.yz, QM, N, ap0, aq0)
+    else:
+        rows = native.sweep_match(p.decoded(True), ap0, q.decoded(True), aq0)
+    if rows is None:
+        return None
+    nz = rows[rows[:, 2] != rows[:, 3]]
+    tot_len = int((nz[:, 3] - nz[:, 2]).sum())
+    log(f"Average number of best matches including alternates "
+        f"{len(rows) / QM:.1f}, Average length "
+        f"{tot_len / max(len(nz), 1):.1f}, Av number per position "
+        f"{tot_len / (QM * N):.1f}")
+    return rows
+
+
 def match_sequences_sweep(p: PBWT, q: PBWT, report, device=None) -> None:
     """The production dynamic matcher (matchSequencesSweep,
     pbwtMatch.c:363-443): joint sweep of panel and query cursors keeping per

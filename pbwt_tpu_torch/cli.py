@@ -2,7 +2,8 @@
 commands on one current PBWT, as ``pbwt_tpu/cli.py`` (pbwtMain.c:276-494),
 for the commands this port serves. The match commands take the device
 routes of :mod:`pbwt_tpu_torch.algos.match`, -llCopyModel that of
-:mod:`pbwt_tpu_torch.algos.likelihood`, and the importers build on the device
+:mod:`pbwt_tpu_torch.algos.likelihood`, -referenceImpute that of
+:mod:`pbwt_tpu_torch.algos.impute`, and the importers build on the device
 engine; ``PBWT_TORCH_DEVICE`` decides (:mod:`pbwt_tpu_torch.ops`)."""
 
 from __future__ import annotations
@@ -20,21 +21,32 @@ Commands:
   -read <file>              read pbwt file; '-' for stdin
   -readAll <rootname>       read .pbwt and if present .sites, .samples, .missing
   -readVcfGT <file>         read GTs from vcf or bcf file; '-' for stdin
+  -readDosage <file>        read dosage file; '-' for stdin
   -write <file>             write pbwt file; '-' for stdout
+  -writeDosage <file>       write dosage file; '-' for stdout
   -writeAll <rootname>      write .pbwt and present sidecars
   -haps <file>              write haplotype file; '-' for stdout
+  -writeGen <file>          write impute2 gen file; '-' for stdout
+  -writeVcf|-writeVcfGz|-writeBcf|-writeBcfGz <file>  write VCF/BCF
+  -referenceFasta <file>    reference fasta for VCF/BCF writing
   -matchIndexed <file>      maximal match seqs in pbwt file to reference
   -matchDynamic <file>      maximal match seqs in pbwt file to reference
+  -referenceImpute <root> [nSparse=1] [fSparse=1]  impute into reference
   -fitAlphaBeta <model>     fit probabilistic model 1..3
   -llCopyModel <theta> <rho> log likelihood of Li-Stephens model
 Every other command of pbwt is served by: python -m pbwt_tpu
 """
 
-# the commands of this port and the arguments each takes
+# the commands of this port and the arguments each takes (-referenceImpute
+# takes two optional ones more)
 _NARGS = {"-check": 0, "-stats": 0, "-log": 1, "-read": 1, "-readAll": 1,
-          "-readVcfGT": 1, "-write": 1, "-writeAll": 1, "-haps": 1,
-          "-matchIndexed": 1, "-matchDynamic": 1, "-fitAlphaBeta": 1,
-          "-llCopyModel": 2}
+          "-readVcfGT": 1, "-readDosage": 1, "-write": 1, "-writeDosage": 1,
+          "-writeAll": 1, "-haps": 1, "-writeGen": 1, "-writeVcf": 1,
+          "-writeVcfGz": 1, "-writeBcf": 1, "-writeBcfGz": 1,
+          "-referenceFasta": 1, "-matchIndexed": 1, "-matchDynamic": 1,
+          "-referenceImpute": 1, "-fitAlphaBeta": 1, "-llCopyModel": 2}
+_VCF_MODES = {"-writeVcf": "w", "-writeVcfGz": "wz", "-writeBcf": "wbu",
+              "-writeBcfGz": "wb"}
 
 
 def _open(name: str, mode: str):
@@ -74,7 +86,7 @@ def main(argv: list[str] | None = None) -> int:
 
 def _main(argv: list[str] | None) -> int:
     from . import utils
-    from .algos import likelihood, match
+    from .algos import impute, likelihood, match
     from .core import registry
     from .io import pbwtfile, textformats, vcf
 
@@ -86,6 +98,7 @@ def _main(argv: list[str] | None) -> int:
         sys.stderr.write(HELP)
         return 0
     p = None
+    reference_fasta = None
     utils.time_update()
     while argv:
         cmd = argv[0]
@@ -113,9 +126,17 @@ def _main(argv: list[str] | None) -> int:
             p = pbwtfile.read_all(arg)
         elif cmd == "-readVcfGT":
             p = vcf.read_vcf_gt(arg)
+        elif cmd == "-readDosage":
+            fp = _open(arg, "rb")
+            pbwtfile.read_dosage(p, fp)
+            _close(fp, arg)
         elif cmd == "-write":
             fp = _open(arg, "wb")
             pbwtfile.write_pbwt(p, fp)
+            _close(fp, arg)
+        elif cmd == "-writeDosage":
+            fp = _open(arg, "wb")
+            pbwtfile.write_dosage(p, fp)
             _close(fp, arg)
         elif cmd == "-writeAll":
             pbwtfile.write_all(p, arg)
@@ -123,6 +144,23 @@ def _main(argv: list[str] | None) -> int:
             fp = _open(arg, "w")
             textformats.write_haplotypes(fp, p)
             _close(fp, arg)
+        elif cmd == "-writeGen":
+            fp = _open(arg, "w")
+            textformats.write_gen(p, fp)
+            _close(fp, arg)
+        elif cmd in _VCF_MODES:
+            vcf.write_vcf(p, arg, reference_fasta, _VCF_MODES[cmd])
+        elif cmd == "-referenceFasta":
+            reference_fasta = arg
+        elif cmd == "-referenceImpute":
+            # optional [nSparse] [fSparse]: the words up to the next command
+            extra = []
+            while (len(extra) < 2 and len(argv) > 2
+                   and not argv[2].startswith("-")):
+                extra.append(argv.pop(2))
+            p = impute.reference_impute(
+                p, arg, int(extra[0]) if extra else 1,
+                float(extra[1]) if len(extra) > 1 else 1.0)
         elif cmd == "-matchIndexed":
             fp = _open(arg, "rb")
             q = pbwtfile.read_pbwt(fp)

@@ -132,6 +132,18 @@ def _load():
     lib.natural_cols.argtypes = [u8p, L, L, L, i32p, u8p, i64p]
     lib.build_reverse_core.restype = L
     lib.build_reverse_core.argtypes = [u8p, L, L, L, i32p, u8p, L, i32p]
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    lib.impute_emit.restype = L
+    lib.impute_emit.argtypes = [u8p, f64p, L, L, i32p, u8p, L, u8p, L,
+                                i64p, i64p]
+    lib.impute_vote_emit.restype = L
+    lib.impute_vote_emit.argtypes = [u8p, L, L, L, i32p, i32p, i32p, i32p,
+                                     i64p, i32p, L, i32p, i64p,
+                                     L, u8p, L, i64p,
+                                     u8p, L, u8p, L, i64p, f64p,
+                                     f64p, f64p, f64p, i64p, i64p]
+    lib.segs_sort.restype = L
+    lib.segs_sort.argtypes = [i64p, L, L, i32p, i32p, i32p, i64p]
     _lib = lib
     return _lib
 
@@ -288,6 +300,110 @@ def build_reverse_core(yz: bytes, M: int, N: int, aFend: np.ndarray):
         if n <= cap:
             return zz[:n].tobytes(), arend
         cap = int(n)
+
+
+def segs_sort(rows: np.ndarray, T: int):
+    """Match rows (n, 4) int64 [j, jr, s, e] -> per-target start-sorted
+    i32 columns (jr, s, e) + seg_off (T+1,) int64, in one C pass.
+    Returns None when the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    rows = np.ascontiguousarray(rows, np.int64)
+    n = len(rows)
+    jr = np.empty(n, np.int32)
+    s = np.empty(n, np.int32)
+    e = np.empty(n, np.int32)
+    seg_off = np.empty(T + 1, np.int64)
+    if lib.segs_sort(rows.reshape(-1), n, T, jr, s, e, seg_off) < 0:
+        raise MemoryError("segs_sort")
+    return jr, s, e, seg_off
+
+
+def impute_vote_emit(yzref: bytes, Mref: int, Nref: int, a_ref0: np.ndarray,
+                     segments: np.ndarray, seg_off: np.ndarray, T: int,
+                     kold: np.ndarray, zmiss: bytes | None = None,
+                     miss_off: np.ndarray | None = None,
+                     seg_cols=None):
+    """The whole referenceImpute3 core (pbwtImpute.c:1184-1251) as one
+    streaming C pass with O(Mref + T) live memory: decode panel column →
+    natural scatter → weighted vote per target → pack3 + dosage-RLE emit →
+    advance both prefix arrays.  segments (n, 4) [j, j_ref, start, end]
+    must be sorted by (j, start).
+
+    Self-impute mode (imputeMissing, pbwtImpute.c:1323-1371): pass the
+    panel's missing stream (zmiss + per-site offsets, offset 0 = none);
+    complete entries copy straight through and only missing entries vote.
+
+    Returns (yz, zdosage, dos_off, ref_freq, psums, xsums, pxsums, nvote,
+    n_conflicts, a_tgt_end) or None when the native library is missing."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    buf = np.frombuffer(bytes(yzref), np.uint8)
+    a_ref = np.ascontiguousarray(a_ref0, np.int32).copy()
+    a_tgt = np.arange(T, dtype=np.int32)
+    first = seg_off[:-1].astype(np.int32)
+    self_mode = 1 if miss_off is not None else 0
+    zm = np.frombuffer(zmiss if zmiss else b"\x00", np.uint8)
+    mo = (np.ascontiguousarray(miss_off, np.int64) if miss_off is not None
+          else np.zeros(Nref, np.int64))
+    yz_cap = Nref * (T + 8) + 16
+    zdos_cap = Nref * (T + T // 4 + 16) + 16
+    yz = pooled(yz_cap, "impute_emit_yz")
+    zdos = pooled(zdos_cap, "impute_emit_zdos")
+    dos_off = np.empty(Nref, np.int64)
+    ref_freq = np.empty(Nref, np.float64)
+    psums = np.empty(Nref, np.float64)
+    xsums = np.empty(Nref, np.float64)
+    pxsums = np.empty(Nref, np.float64)
+    nvote = np.empty(Nref, np.int64)
+    lens = np.empty(2, np.int64)
+    if seg_cols is not None:
+        jr_c, s_c, e_c = seg_cols
+    else:
+        jr_c = np.ascontiguousarray(segments[:, 1], np.int32)
+        s_c = np.ascontiguousarray(segments[:, 2], np.int32)
+        e_c = np.ascontiguousarray(segments[:, 3], np.int32)
+    conflicts = lib.impute_vote_emit(
+        buf, len(buf), Mref, Nref, a_ref, jr_c, s_c, e_c,
+        np.ascontiguousarray(seg_off, np.int64), first, T, a_tgt, kold,
+        self_mode, zm, len(zm), mo,
+        yz, yz_cap, zdos, zdos_cap, dos_off, ref_freq,
+        psums, xsums, pxsums, nvote, lens)
+    if conflicts < 0:
+        raise ValueError("impute_vote_emit: corrupt stream or overflow")
+    return (yz[:lens[0]].tobytes(), zdos[:lens[1]].tobytes(), dos_off,
+            ref_freq, psums, xsums, pxsums, nvote, int(conflicts), a_tgt)
+
+
+def impute_emit(x_all: np.ndarray, dos_all: np.ndarray, a0: np.ndarray):
+    """referenceImpute3 output stage (pbwtImpute.c:1235-1249): per site,
+    gather to sort order, pack3 the alleles, RLE the quantised dosages,
+    advance the prefix array.  x_all/dos_all are site-major (Nref, T).
+
+    Returns (yz bytes, zdosage bytes, dosage_offsets int64, a_end) or
+    None when the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    Nref, T = x_all.shape
+    x_all = np.ascontiguousarray(x_all, np.uint8)
+    dos_all = np.ascontiguousarray(dos_all, np.float64)
+    a = np.ascontiguousarray(a0, np.int32).copy()
+    yz_cap = Nref * (T + 8) + 16
+    # dosage worst case: <=1 byte/element for short runs; long zero runs
+    # add <=3 escape bytes each and there are <= T/32 of those per site
+    zdos_cap = Nref * (T + T // 4 + 16) + 16
+    yz = pooled(yz_cap, "impute_emit_yz")
+    zdos = pooled(zdos_cap, "impute_emit_zdos")
+    dos_off = np.empty(Nref, np.int64)
+    lens = np.empty(2, np.int64)
+    rc = lib.impute_emit(x_all.reshape(-1), dos_all.reshape(-1), T, Nref, a,
+                         yz, yz_cap, zdos, zdos_cap, dos_off, lens)
+    if rc < 0:
+        raise AssertionError("impute_emit overflowed its worst-case bound")
+    return yz[:lens[0]].tobytes(), zdos[:lens[1]].tobytes(), dos_off, a
 
 
 def decode_cols(yz: bytes, ncols: int, M: int):

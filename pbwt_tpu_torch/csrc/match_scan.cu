@@ -88,16 +88,17 @@ __device__ __forceinline__ int plane_rank(const int* __restrict__ site, int i) {
          __popc((unsigned)w.w & low_bits(r - 64));
 }
 
-// The reset of one query that collapsed at site k by its warp (t: the lane).
-// Returns the new (e, f, g). Not inlined, and the rows of D and A are found in
-// here: the scan's loop then carries nothing for it.
+// The reset of one query that collapsed at global site k by its warp (t: the
+// lane); the tables' first row is site k0. Returns the new (e, f, g). Not
+// inlined, and the rows of D and A are found in here: the scan's loop then
+// carries nothing for it.
 __device__ __noinline__ int3 group_reset(const int* __restrict__ D, const int* __restrict__ A,
                                          const int* __restrict__ xq,
-                                         const int* __restrict__ xp_words, int k, int f1, int g1,
-                                         int mp, int nw, int t) {
+                                         const int* __restrict__ xp_words, int k, int k0, int f1,
+                                         int g1, int mp, int nw, int t) {
   constexpr int L = K3_LANES;
-  const int* dk = D + (size_t)k * mp;       // D[k], and A[k + 1]: the order after site k
-  const int* ak = A + (size_t)(k + 1) * mp;
+  const int* dk = D + (size_t)(k - k0) * mp;  // the order after site k: its D, the next A
+  const int* ak = A + (size_t)(k - k0 + 1) * mp;
   // everything whose address is known now, in one round: the divergence at
   // f1, both candidates of the haplotype, the first step of either walk
   int ia = g1 - 1 - t, ib = f1 + 1 + t;
@@ -159,29 +160,30 @@ __device__ __noinline__ int3 group_reset(const int* __restrict__ D, const int* _
 __global__ void __launch_bounds__(K3_THREADS)
 k3_scan(const int* __restrict__ plane, size_t plane_stride, const int* __restrict__ D,
         const int* __restrict__ A, const int* __restrict__ C, const int* __restrict__ xq_words,
-        const int* __restrict__ xp_words, int ns, int mp, int nq, int nw, int* __restrict__ e_io,
-        int* __restrict__ f_io, int* __restrict__ g_io, int* __restrict__ rec, int cap,
-        int* __restrict__ nrec) {
+        const int* __restrict__ xp_words, int ns, int mp, int nq, int nw, int k0,
+        int* __restrict__ e_io, int* __restrict__ f_io, int* __restrict__ g_io,
+        int* __restrict__ rec, int cap, int* __restrict__ nrec) {
   constexpr int L = K3_LANES;
   const int t = threadIdx.x & 31;  // lane of the query's warp
   const int groups = gridDim.x * (K3_THREADS / L);
+  const int kend = k0 + ns;  // the tables' rows are the global sites k0 .. kend - 1
   for (int q = blockIdx.x * (K3_THREADS / L) + threadIdx.x / L; q < nq; q += groups) {
     const int* xq = xq_words + (size_t)q * nw;
     int e = e_io[q], f = f_io[q], g = g_io[q];
     int c_next = __ldg(C);
-    unsigned xw_next = (unsigned)xq[0];
+    unsigned xw_next = (unsigned)xq[k0 >> 5];
     const int* site = plane;
-    for (int kb = 0; kb < ns; kb += 32) {
+    for (int kb = k0; kb < kend; kb += 32) {
       // off the chain: the query's 32 sites of this word were asked for a
       // word ago, a site's count a site ago
       const unsigned xw = site_order(xw_next);
       if ((kb >> 5) + 1 < nw) xw_next = (unsigned)xq[(kb >> 5) + 1];
-      const int send = min(32, ns - kb);
+      const int send = min(32, kend - kb);
 #pragma unroll 4
       for (int s = 0; s < send; ++s, site += plane_stride) {
         const int k = kb + s;
         const int c = c_next;
-        if (k + 1 < ns) c_next = __ldg(C + k + 1);
+        if (k + 1 < kend) c_next = __ldg(C + (k + 1 - k0));
         const bool x = (xw >> s) & 1;
         // the chain: even lanes rank f, odd lanes g
         int u = plane_rank(site, (t & 1) ? g : f);
@@ -204,7 +206,7 @@ k3_scan(const int* __restrict__ plane, size_t plane_stride, const int* __restric
             o[4] = g;
           }
         }
-        int3 r = group_reset(D, A, xq, xp_words, k, f1, g1, mp, nw, t);
+        int3 r = group_reset(D, A, xq, xp_words, k, k0, f1, g1, mp, nw, t);
         e = r.x;
         f = r.y;
         g = r.z;
@@ -274,15 +276,21 @@ int k3_rank_plane(int device, const int* U, const int* C, int ns, int mp, int* p
   return (int)cudaGetLastError();
 }
 
-// K3. plane from k3_rank_plane; D (ns, mp) and A (ns + 1, mp) int32; C (ns,);
-// xq_words (nq, nw) and xp_words (mp, nw) row-packed haplotypes with
-// nw * 32 >= ns. e/f/g hold the starting intervals and receive the k = ns
-// flush carry. rec receives up to cap records of five ints; nrec (zeroed by
-// the caller) counts them all, so nrec > cap means the buffer overflowed.
+// K3. plane from k3_rank_plane; D (ns, mp) and A (ns + 1, mp) int32; C (ns,):
+// the tables of the global sites k0 .. k0 + ns - 1, k0 a multiple of 32 (the
+// scan loads a query word a block of 32 sites). xq_words (nq, nw) and
+// xp_words (mp, nw) the whole row-packed haplotypes, nw * 32 >= k0 + ns.
+// e/f/g hold the intervals entering site k0 and receive those after the last
+// site (the flush carry). rec receives up to cap records of five ints, the
+// site global; nrec (zeroed by the caller) counts them all, so nrec > cap
+// means the buffer overflowed.
 int k3_match_scan(int device, const int* plane, const int* D, const int* A, const int* C,
                   const int* xq_words, const int* xp_words, int ns, int mp, int nq, int nw,
-                  int* e, int* f, int* g, int* rec, int cap, int* nrec, void* stream) {
+                  int k0, int* e, int* f, int* g, int* rec, int cap, int* nrec,
+                  void* stream) {
   if (nq <= 0 || ns <= 0) return 0;
+  if (k0 < 0 || (k0 & 31) || (long long)nw * 32 < (long long)k0 + ns)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int sms = 0, per_sm = 0;
@@ -298,7 +306,8 @@ int k3_match_scan(int device, const int* plane, const int* D, const int* A, cons
   int nb = (int)(want < fit ? want : fit);
   size_t plane_stride = (size_t)(mp / PLANE_ROWS + 1) * PLANE_WORDS;
   k3_scan<<<nb, K3_THREADS, 0, (cudaStream_t)stream>>>(
-      plane, plane_stride, D, A, C, xq_words, xp_words, ns, mp, nq, nw, e, f, g, rec, cap, nrec);
+      plane, plane_stride, D, A, C, xq_words, xp_words, ns, mp, nq, nw, k0, e, f, g, rec, cap,
+      nrec);
   return (int)cudaGetLastError();
 }
 

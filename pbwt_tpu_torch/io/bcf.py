@@ -1,5 +1,4 @@
-"""Minimal BCF2.2 reader for the feature subset pbwt emits (the writer needs
-the imputation module's dosages and is not in the port yet).
+"""Minimal BCF2.2 reader/writer for the feature subset pbwt emits.
 
 BCF2 layout (hts-specs VCFv4.2 section 6):
   "BCF\\2\\2" | uint32 l_text | header text (VCF header incl #CHROM, NUL)
@@ -19,6 +18,7 @@ int8 vector-end 0x81.
 from __future__ import annotations
 
 import struct
+import sys
 
 import numpy as np
 
@@ -28,6 +28,165 @@ INT16_MISSING = -32768
 INT16_END = -32767
 INT32_MISSING = -2147483648
 INT32_END = -2147483647
+FLOAT_MISSING = 0x7F800001
+
+
+# --------------------------------------------------------------------------
+# typed value encoding
+# --------------------------------------------------------------------------
+
+def _typed_descriptor(length: int, btype: int) -> bytes:
+    if length < 15:
+        return bytes([(length << 4) | btype])
+    return bytes([(15 << 4) | btype]) + _typed_int(length)
+
+
+def _typed_int(v: int) -> bytes:
+    if -120 <= v <= 127:
+        return bytes([(1 << 4) | 1, v & 0xFF])
+    if -32000 <= v <= 32767:
+        return bytes([(1 << 4) | 2]) + struct.pack("<h", v)
+    return bytes([(1 << 4) | 3]) + struct.pack("<i", v)
+
+
+def _typed_string(s: str) -> bytes:
+    b = s.encode()
+    return _typed_descriptor(len(b), 7) + b
+
+
+def _typed_int_vec(vals, force_type: int | None = None) -> bytes:
+    vals = list(vals)
+    if not vals:
+        return bytes([0x00 | 1])
+    lo, hi = min(vals), max(vals)
+    if force_type == 1 or (force_type is None and -120 <= lo and hi <= 127):
+        return (_typed_descriptor(len(vals), 1)
+                + struct.pack(f"<{len(vals)}b", *vals))
+    if force_type == 2 or (force_type is None and -32000 <= lo and hi <= 32767):
+        return (_typed_descriptor(len(vals), 2)
+                + struct.pack(f"<{len(vals)}h", *vals))
+    return _typed_descriptor(len(vals), 3) + struct.pack(f"<{len(vals)}i", *vals)
+
+
+def _typed_float_vec(vals) -> bytes:
+    vals = list(vals)
+    return _typed_descriptor(len(vals), 5) + struct.pack(f"<{len(vals)}f", *vals)
+
+
+# --------------------------------------------------------------------------
+# writer
+# --------------------------------------------------------------------------
+
+def write_bcf(p, filename: str, reference_fasta: str | None = None,
+              compressed: bool = True) -> None:
+    from . import vcf as vcfmod
+    from ..core import engine, registry
+
+    header_lines = vcfmod.vcf_header_lines(p, reference_fasta)
+    chrom_line = ("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+                  + "\t".join(vcfmod.sample_column_names(p)))
+    text = "\n".join(header_lines) + "\n" + chrom_line + "\n\x00"
+
+    # dictionary of strings: order of first appearance of FILTER/INFO/FORMAT
+    # IDs in the header, PASS first (htslib: bcf_hdr_parse assigns IDX in
+    # header order with PASS implicitly 0)
+    dict_ids: list[str] = []
+    for line in header_lines:
+        for kind in ("FILTER", "INFO", "FORMAT"):
+            if line.startswith(f"##{kind}=<ID="):
+                name = line.split("ID=")[1].split(",")[0].split(">")[0]
+                if name not in dict_ids:
+                    dict_ids.append(name)
+    idx = {name: i for i, name in enumerate(dict_ids)}
+    contigs: list[str] = []
+    for line in header_lines:
+        if line.startswith("##contig=<ID="):
+            contigs.append(line.split("ID=")[1].split(",")[0].split(">")[0])
+    rid = {name: i for i, name in enumerate(contigs)}
+
+    out_raw = sys.stdout.buffer if filename == "-" else open(filename, "wb")
+    if compressed:
+        from .bgzf import BgzfWriter
+        out = BgzfWriter(out_raw)
+    else:
+        out = out_raw
+
+    out.write(b"BCF\x02\x02")
+    tb = text.encode()
+    out.write(struct.pack("<I", len(tb)))
+    out.write(tb)
+
+    from ..algos.impute import dosage_retrieve
+    is_dosage = p.dosageOffset is not None
+    vd = registry.variation_dict
+    Y = p.decoded(True)
+    a = p.aFstart.copy()
+    hap = np.empty(p.M, dtype=np.uint8)
+    ad = np.empty(p.M, dtype=np.float64)
+    for i, s in enumerate(p.sites):
+        y = Y[i]
+        hap[a] = y
+        if is_dosage:
+            ad[a] = dosage_retrieve(p, y, i)
+        als = registry.variation_name(s.varD).split("\t")
+        ref = als[0]
+        alt = als[1] if len(als) > 1 else "."
+        alleles = [ref] + ([alt] if alt != "." else [])
+        ac = int(np.minimum(hap, 1).sum())
+        an = p.M
+
+        shared = bytearray()
+        shared += struct.pack("<iii", rid[p.chrom], s.x - 1, len(ref))
+        shared += struct.pack("<I", FLOAT_MISSING)
+        n_info = 2 + (1 if p.isRefFreq else 0) + (1 if is_dosage else 0)
+        shared += struct.pack("<I", (len(alleles) << 16) | n_info)
+        n_fmt = 4 if is_dosage else 1
+        shared += struct.pack("<I", (n_fmt << 24) | (p.M // 2))
+        shared += _typed_string("")          # ID = missing
+        for al in alleles:
+            shared += _typed_string(al)
+        shared += _typed_int_vec([idx["PASS"]])
+        # INFO in htslib emission order: RefPanelAF?, DR2?, AC, AN
+        if p.isRefFreq:
+            shared += _typed_int(idx["RefPanelAF"]) + _typed_float_vec([s.refFreq])
+        if is_dosage:
+            shared += _typed_int(idx["DR2"]) + _typed_float_vec([s.imputeInfo])
+        shared += _typed_int(idx["AC"]) + _typed_int_vec([ac])
+        shared += _typed_int(idx["AN"]) + _typed_int_vec([an])
+
+        indiv = bytearray()
+        gt_vals = []
+        for j in range(0, p.M, 2):
+            gt_vals.append((int(hap[j]) + 1) << 1)            # first: unphased
+            phased = 0 if p.isUnphased else 1
+            gt_vals.append(((int(hap[j + 1]) + 1) << 1) | phased)
+        indiv += _typed_int(idx["GT"])
+        indiv += _typed_descriptor(2, 1) + struct.pack(f"<{p.M}b", *gt_vals)
+        if is_dosage:
+            indiv += _typed_int(idx["ADS"])
+            indiv += _typed_descriptor(2, 5) + struct.pack(f"<{p.M}f", *ad[:p.M])
+            ds = [float(ad[j] + ad[j + 1]) for j in range(0, p.M, 2)]
+            indiv += _typed_int(idx["DS"])
+            indiv += _typed_descriptor(1, 5) + struct.pack(f"<{len(ds)}f", *ds)
+            gps = []
+            for j in range(0, p.M, 2):
+                d0, d1 = float(ad[j]), float(ad[j + 1])
+                gps += [(1 - d0) * (1 - d1), d0 + d1 - 2 * d0 * d1, d0 * d1]
+            indiv += _typed_int(idx["GP"])
+            indiv += _typed_descriptor(3, 5) + struct.pack(f"<{len(gps)}f", *gps)
+
+        out.write(struct.pack("<II", len(shared), len(indiv)))
+        out.write(bytes(shared))
+        out.write(bytes(indiv))
+        from ..core import engine as _e
+        a = _e.forwards_a(a, y)
+
+    if compressed:
+        out.close()
+    elif filename != "-":
+        out.close()
+    else:
+        out.flush()
 
 
 # --------------------------------------------------------------------------

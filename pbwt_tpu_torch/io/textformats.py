@@ -1,6 +1,5 @@
 """Text-format importers/exporters: vcfq, MaCS, IMPUTE2 gen/hap/legend,
-Li-Stephens PHASE, haplotype matrices (pbwtIO.c:424-954). pbwtWriteGen needs
-the imputation module's dosages and is not in the port yet."""
+Li-Stephens PHASE, haplotype matrices (pbwtIO.c:424-954)."""
 
 from __future__ import annotations
 
@@ -259,6 +258,14 @@ def read_phase(fp, chrom: str) -> PBWT:
 # haplotype writers (pbwtIO.c:837-954)
 # --------------------------------------------------------------------------
 
+def _iter_sites(p: PBWT):
+    """Yield (i, y_sorted, site) per site, streaming columns blockwise."""
+    for k0, Yb in p.stream_sorted():
+        for ib in range(Yb.shape[0]):
+            i = k0 + ib
+            yield i, Yb[ib], p.sites[i]
+
+
 def write_haplotypes(fp, p: PBWT, impute_ref: bool = False) -> None:
     """pbwtWriteHaplotypes (:839-857): one line of M 0/1 chars per site.
     Streams the packed columns blockwise (O(M) live memory)."""
@@ -313,6 +320,37 @@ def write_impute_haps_g(p: PBWT, fp) -> None:
             fp.write("".join(f" {int(v) and 1}" for v in hap))
             fp.write("\n")
             a = engine.forwards_a(a, Yb[ib])
+
+
+def write_gen(p: PBWT, fp) -> None:
+    """pbwtWriteGen (:915-954)."""
+    if p.sites is None:
+        raise ValueError("pbwtWriteGen called without sites")
+    from ..algos.impute import dosage_retrieve
+    vd = registry.variation_dict
+    a = p.aFstart.copy()
+    hap = np.empty(p.M, dtype=np.uint8)
+    ad = np.empty(p.M, dtype=np.float64)
+    is_dosage = p.dosageOffset is not None
+    for i, y, s in _iter_sites(p):
+        als = registry.variation_name(s.varD)
+        als_u = als.replace("\t", "_")
+        fp.write(f"{p.chrom}:{s.x}_{als_u} {p.chrom}:{s.x}_{als_u} {s.x}"
+                 f" {als_u.replace('_', ' ')}")
+        hap[a] = y
+        if is_dosage:
+            d = dosage_retrieve(p, y, i)
+            ad[a] = d
+            for j in range(0, p.M, 2):
+                fp.write(f" {(1 - ad[j]) * (1 - ad[j + 1]):f}"
+                         f" {ad[j] + ad[j + 1] - 2 * ad[j] * ad[j + 1]:f}"
+                         f" {ad[j] * ad[j + 1]:f}")
+        else:
+            for j in range(0, p.M, 2):
+                g = int(hap[j]) + int(hap[j + 1])
+                fp.write(" 1 0 0" if g == 0 else " 0 1 0" if g == 1 else " 0 0 1")
+        fp.write("\n")
+        a = engine.forwards_a(a, y)
 
 
 def write_phase(p: PBWT, filename: str) -> None:

@@ -1,8 +1,11 @@
-"""VCF reading with htslib-equivalent behaviour (pbwtHtslib.c).
+"""VCF reading/writing with htslib-equivalent behaviour (pbwtHtslib.c).
 
 The reference links htslib; the VCF text format (plus gzip/BGZF and BCF2, in
-a sibling module) is parsed here natively. The writers (pbwtWriteVcf) need
-the imputation module's dosages and are not in the port yet.
+sibling modules) is implemented here natively, so that output is
+byte-identical to what the reference emits through htslib for the feature
+subset pbwt uses: fileformat/FILTER/contig/INFO/FORMAT headers,
+GT[:ADS:DS:GP] fields, AC/AN[,RefPanelAF,DR2] INFO, missing QUAL, PASS
+filter.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import sys
 
 import numpy as np
 
+from .. import version as _ver
 from ..core import engine, native, pack3 as p3, registry
 from ..core.pbwt import PBWT, Site
 from ..utils import log
@@ -289,3 +293,153 @@ def read_vcf_pl(filename: str) -> PBWT:
     if p is None:
         p = PBWT(0, 0)
     return p
+
+
+# --------------------------------------------------------------------------
+# writing (pbwtWriteVcf, pbwtHtslib.c:237-396)
+# --------------------------------------------------------------------------
+
+def _fmt_float(v: float) -> str:
+    """htslib renders bcf floats into VCF with %g."""
+    return f"{v:g}"
+
+
+def vcf_header_lines(p: PBWT, reference_fasta: str | None = None,
+                     with_pbwt_lines: bool = True) -> list[str]:
+    is_dosage = p.dosageOffset is not None
+    lines = ["##fileformat=VCFv4.2",
+             '##FILTER=<ID=PASS,Description="All filters passed">']
+    if reference_fasta:
+        for name, length in _fasta_contigs(reference_fasta):
+            lines.append(f"##contig=<ID={name},length={length}>")
+    elif p.chrom:
+        lines.append(f"##contig=<ID={p.chrom},length={0x7fffffff}>")
+    if with_pbwt_lines:
+        lines.append(f"##pbwtVersion={_ver.MAJOR_VERSION}.{_ver.MINOR_VERSION}"
+                     f"+pbwt-tpu-{_ver.__version__}")
+        lines.append(f"##pbwtCommand=pbwt {registry.command_line}")
+    lines.append('##INFO=<ID=AC,Number=A,Type=Integer,Description='
+                 '"Allele count in genotypes">')
+    lines.append('##INFO=<ID=AN,Number=1,Type=Integer,Description='
+                 '"Total number of alleles in called genotypes">')
+    lines.append('##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">')
+    if is_dosage:
+        lines.append('##INFO=<ID=RefPanelAF,Number=A,Type=Float,Description='
+                     '"Allele frequency in imputation reference panel">')
+        lines.append('##INFO=<ID=DR2,Number=A,Type=Float,Description='
+                     '"Estimated haploid dosage r^2 from imputation">')
+        lines.append('##FORMAT=<ID=ADS,Number=R,Type=Float,Description="Allele dosage">')
+        lines.append('##FORMAT=<ID=DS,Number=1,Type=Float,Description="Genotype dosage">')
+        lines.append('##FORMAT=<ID=GP,Number=G,Type=Float,Description='
+                     '"Genotype posterior probabilities">')
+    return lines
+
+
+def _fasta_contigs(path: str):
+    fai = path + ".fai"
+    out = []
+    try:
+        with open(fai) as fp:
+            for line in fp:
+                parts = line.split("\t")
+                out.append((parts[0], int(parts[1])))
+    except OSError as e:
+        raise ValueError(f"Could not load the reference {path}. Has the fasta "
+                         "been indexed with 'samtools faidx'?") from e
+    return out
+
+
+def sample_column_names(p: PBWT) -> list[str]:
+    if p.samples:
+        return [registry.sample_name(p.samples[2 * i]) for i in range(p.M // 2)]
+    return [f"PBWT{i}" for i in range(p.M // 2)]
+
+
+def format_records(p: PBWT):
+    """Yield VCF data lines for p (generator)."""
+    from ..algos.impute import dosage_retrieve
+    from .textformats import _iter_sites
+    vd = registry.variation_dict
+    is_dosage = p.dosageOffset is not None
+    a = p.aFstart.copy()
+    hap = np.empty(p.M, dtype=np.uint8)
+    ad = np.empty(p.M, dtype=np.float64)
+    for i, y, s in _iter_sites(p):
+        hap[a] = y
+        if is_dosage:
+            ad[a] = dosage_retrieve(p, y, i)
+        als = registry.variation_name(s.varD).split("\t")
+        ref = als[0]
+        alt = als[1] if len(als) > 1 else "."
+        ac = int(np.minimum(hap, 1).sum())
+        an = p.M
+        sep2 = "/" if p.isUnphased else "|"
+        # alleles are biallelic 0/1: build GT strings by table lookup
+        lut = [f"0{sep2}0", f"0{sep2}1", f"1{sep2}0", f"1{sep2}1"]
+        code = (hap[0::2].astype(np.int32) * 2 + hap[1::2]).tolist()
+        gt_strs = [lut[c] for c in code]
+        info_parts = []
+        if p.isRefFreq:
+            info_parts.append(f"RefPanelAF={_fmt_float(s.refFreq)}")
+        if is_dosage:
+            info_parts.append(f"DR2={_fmt_float(s.imputeInfo)}")
+        info_parts.append(f"AC={ac}")
+        info_parts.append(f"AN={an}")
+        fmt = "GT"
+        if is_dosage:
+            fmt = "GT:ADS:DS:GP"
+            cols = []
+            for j in range(0, p.M, 2):
+                d0, d1 = ad[j], ad[j + 1]
+                ds = d0 + d1
+                gp0 = (1 - d0) * (1 - d1)
+                gp1 = d0 + d1 - 2 * d0 * d1
+                gp2 = d0 * d1
+                cols.append(f"{gt_strs[j // 2]}:{_fmt_float(d0)},{_fmt_float(d1)}"
+                            f":{_fmt_float(ds)}"
+                            f":{_fmt_float(gp0)},{_fmt_float(gp1)},{_fmt_float(gp2)}")
+        else:
+            cols = gt_strs
+        yield (f"{p.chrom}\t{s.x}\t.\t{ref}\t{alt}\t.\tPASS\t"
+               + ";".join(info_parts) + "\t" + fmt + "\t" + "\t".join(cols))
+        a = engine.forwards_a(a, y)
+
+
+def write_vcf(p: PBWT, filename: str, reference_fasta: str | None = None,
+              mode: str = "w") -> None:
+    """pbwtWriteVcf: mode w=VCF, wz=BGZF VCF, wbu=uncompressed BCF, wb=BGZF BCF."""
+    if p is None:
+        raise ValueError("pbwtWriteVcf called without a valid pbwt")
+    if p.sites is None:
+        raise ValueError("pbwtWriteVcf called without sites")
+    if not p.samples:
+        log("Warning: pbwtWriteVcf called without samples... using fake sample "
+            "names PBWT0, PBWT1 etc...")
+
+    if mode in ("wbu", "wb"):
+        from . import bcf
+        bcf.write_bcf(p, filename, reference_fasta, compressed=(mode == "wb"))
+    else:
+        header = vcf_header_lines(p, reference_fasta)
+        body_iter = format_records(p)
+        text = ("\n".join(header) + "\n"
+                + "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+                + "\t".join(sample_column_names(p)) + "\n")
+        if mode == "wz":
+            from . import bgzf
+            out = bgzf.BgzfWriter(sys.stdout.buffer if filename == "-"
+                                  else open(filename, "wb"))
+            out.write(text.encode())
+            for rec in body_iter:
+                out.write((rec + "\n").encode())
+            out.close()
+        else:
+            out = sys.stdout if filename == "-" else open(filename, "w")
+            out.write(text)
+            for rec in body_iter:
+                out.write(rec + "\n")
+            if filename != "-":
+                out.close()
+            else:
+                out.flush()
+    log(f"written vcf file: {p.N} records and {p.M // 2} samples")

@@ -20,7 +20,10 @@ import torch
 
 from ..core import native, pack3
 from . import resolve_device
-from .partition import GROUP, group_scan
+from .partition import GROUP, ad_trajectory, group_scan
+
+DIVERGENCE_BYTES = 2 << 30     # trajectory tables of one chunk of the
+                               # divergence pass
 
 
 def pad_to(M: int, multiple: int = 256) -> int:
@@ -50,29 +53,72 @@ def unpack_columns(ycols: np.ndarray, M: int) -> np.ndarray:
     return np.unpackbits(y, axis=1, bitorder="little")[:, :M]
 
 
-def build_scan_grouped(W: torch.Tensor, a0: torch.Tensor):
+def _divergence_end(W: torch.Tensor, a0: torch.Tensor) -> torch.Tensor:
+    """The divergence array after the last site of W, from the start array
+    (zeros, d[0] = 1): kernel K2 over chunks of whole groups whose
+    trajectory tables fit DIVERGENCE_BYTES, one launch a chunk, (a, d) and
+    the site number carried from chunk to chunk and the tables reused."""
+    Ng, Mp = W.shape
+    d = torch.zeros(Mp, dtype=torch.int32, device=W.device)
+    d[0] = 1
+    if Ng == 0 or Mp == 0:
+        return d
+    per_group = 12 * Mp * GROUP
+    gc = min(max((DIVERGENCE_BYTES - 12 * Mp) // per_group, 1), Ng)
+    ns = gc * GROUP
+    A = torch.empty((ns + 1, Mp), dtype=torch.int32, device=W.device)
+    D, U = (torch.empty((ns, Mp), dtype=torch.int32, device=W.device)
+            for _ in "du")
+    C = torch.empty(ns, dtype=torch.int32, device=W.device)
+    a = a0
+    for g0 in range(0, Ng, gc):
+        n = (min(g0 + gc, Ng) - g0) * GROUP
+        ad_trajectory(W[g0:g0 + gc], a, d, g0 * GROUP,
+                      (A[:n + 1], D[:n], U[:n], C[:n]))
+        a, d = A[n].clone(), D[n - 1].clone()
+    return d
+
+
+def build_scan_grouped(W: torch.Tensor, a0: torch.Tensor,
+                       with_divergence: bool = False,
+                       n_sites: int | None = None):
     """Grouped construction over packed words.
 
     W: (Ng, Mp) int32 group words in natural order; a0: (Mp,) int32 start
     prefix array. Returns (ycols (Ng*32, ceil(Mp/32)) int32 packed sorted
-    columns, counts (Ng*32,) int32, a_end (Mp,) int32). On the card all
-    groups are one launch of kernel K1.
+    columns, counts (Ng*32,) int32, a_end (Mp,) int32, d_end (Mp,) int32).
+    On the card all groups are one launch of kernel K1. Without divergence
+    d_end is the start array (zeros, d[0] = 1) and nothing more runs; with
+    it, kernel K2 carries the divergence array through the same sites
+    (:func:`_divergence_end`), and where n_sites is given and is not a whole
+    number of groups, d_end[0] is n_sites + 1, the value after the last real
+    site: the all-ones pad sites only advance that sentinel.
     """
-    return group_scan(W, a0)
+    ycols, counts, a_end = group_scan(W, a0)
+    if not with_divergence:
+        d_end = torch.zeros_like(a0)
+        if d_end.numel():
+            d_end[0] = 1
+        return ycols, counts, a_end, d_end
+    d_end = _divergence_end(W, a0)
+    if n_sites is not None and n_sites % GROUP:
+        d_end[0] = n_sites + 1
+    return ycols, counts, a_end, d_end
 
 
-def build_pbwt_device(X: np.ndarray, device=None):
-    """Construction from an (M, N) haplotype matrix on ``device``.
+def build_pbwt_device(X: np.ndarray, device=None, multiple: int = 256):
+    """Construction from an (M, N) haplotype matrix on ``device``, the rows
+    padded to a multiple of ``multiple``.
 
     Returns (yz bytes, aFend int32[M], counts int32[N]), the contract of
     ``pbwt_tpu.ops.build.build_pbwt_device``.
     """
     dev = resolve_device(device)
     M, N = X.shape
-    Mp = pad_to(M)
+    Mp = pad_to(M, multiple)
     W = torch.from_numpy(pack_group_words(X, Mp)).to(dev)
     a0 = torch.arange(Mp, dtype=torch.int32, device=dev)
-    ycols, counts, a_end = build_scan_grouped(W, a0)
+    ycols, counts, a_end, _ = build_scan_grouped(W, a0)
     Ysort = unpack_columns(ycols[:N].cpu().numpy(), M)
     # the native column encoder when the C runtime is there (its absence
     # comes with a warning): numpy's pack_columns spends most of its time in

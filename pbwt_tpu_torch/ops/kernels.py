@@ -39,10 +39,11 @@ _SIGNATURES = {
     "k2_partition_ad_step": [_I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
                              _P, _L, _P, _P, _P, _I, _I, _P],
     "k3_rank_plane": [_I, _P, _P, _I, _I, _P, _P],
-    "k3_match_scan": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                      _P, _I, _P, _P],
+    "k3_match_scan": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                      _P, _P, _I, _P, _P],
     "k4_ls_step": [_I, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P],
     "k4_ls_eval": [_I, _P, _L, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P],
+    "k5_impute_vote": [_I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
 }
 
 # kernel name -> number of wrapper calls that launched it

@@ -23,6 +23,8 @@ and the queries; the flush reports k = N.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -74,11 +76,13 @@ def plane_blocks(Mp: int) -> int:
     return Mp // (32 * (PLANE_WORDS - 1)) + 1
 
 
-def rank_plane_plain(U: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+def rank_plane_plain(U: torch.Tensor, C: torch.Tensor,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain twin of :func:`rank_plane`, 256 sites at a time."""
     Ns, Mp = U.shape
     words, nblk, rows = PLANE_WORDS, plane_blocks(Mp), 32 * (PLANE_WORDS - 1)
-    plane = torch.empty((Ns, nblk, words), dtype=torch.int32, device=U.device)
+    plane = out if out is not None else torch.empty(
+        (Ns, nblk, words), dtype=torch.int32, device=U.device)
     weight = torch.ones(32, dtype=torch.int64, device=U.device) \
         << torch.arange(32, device=U.device)
     for k0 in range(0, Ns, 256):
@@ -91,7 +95,8 @@ def rank_plane_plain(U: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     return plane
 
 
-def rank_plane(U: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+def rank_plane(U: torch.Tensor, C: torch.Tensor,
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """The FM rank table as a bit plane (kernel ``k3_rank_plane``).
 
     U (Ns, Mp) int32: the zeros of site k before position i of the pre-site
@@ -99,16 +104,18 @@ def rank_plane(U: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     int32, nblk = :func:`plane_blocks`: block b of a site holds the rank at
     its first row, b * 32 * (PLANE_WORDS - 1), then one bit a row (1: a
     zero), row j of a word at bit j; rows at and beyond Mp hold no bit, so
-    :func:`plane_rank` gives U[k][i] for i < Mp and C[k] at i = Mp.
+    :func:`plane_rank` gives U[k][i] for i < Mp and C[k] at i = Mp. out: a
+    plane of that shape to fill in place of a new one.
     """
-    if U.device.type == "cpu":
-        return rank_plane_plain(U, C)
-    dev = kernels.cuda_tensors(U, C)
     Ns, Mp = U.shape
-    if C.numel() != Ns:
+    shape = (Ns, plane_blocks(Mp), PLANE_WORDS)
+    if C.numel() != Ns or (out is not None and tuple(out.shape) != shape):
         raise ValueError("rank_plane: inconsistent table shapes")
-    plane = torch.empty((Ns, plane_blocks(Mp), PLANE_WORDS),
-                        dtype=torch.int32, device=dev)
+    if U.device.type == "cpu":
+        return rank_plane_plain(U, C, out)
+    plane = out if out is not None else torch.empty(
+        shape, dtype=torch.int32, device=U.device)
+    dev = kernels.cuda_tensors(U, C, plane)
     kernels.launch("k3_rank_plane", dev.index, U.data_ptr(), C.data_ptr(),
                    Ns, Mp, plane.data_ptr(), kernels.stream(dev))
     return plane
@@ -149,7 +156,7 @@ def _site_order(v: int) -> int:
 
 
 def match_scan_indexed_plain(plane, D, A, C, xq_words, xp_words, e, f, g,
-                             cap: int):
+                             cap: int, first_site: int = 0):
     """Plain twin of :func:`match_scan_indexed`: the FM step runs over all
     queries per site, the (rare) resets one query at a time on the host,
     in (site, query) order."""
@@ -162,8 +169,9 @@ def match_scan_indexed_plain(plane, D, A, C, xq_words, xp_words, e, f, g,
     xq_h = xq_words.cpu().numpy().view(np.uint32)
     xp_h = xp_words.cpu().numpy().view(np.uint32)
     for k in range(Ns):
+        kg = first_site + k                    # the tables' row k
         c = C[k].long()
-        x = _query_bit(xq_words, k)
+        x = _query_bit(xq_words, kg)
         fl, gl = f.long(), g.long()
         uf, ug = plane_rank(plane[k], torch.cat([fl, gl])).view(2, Q)
         f1 = torch.where(x != 0, c + fl - uf, uf)
@@ -175,9 +183,9 @@ def match_scan_indexed_plain(plane, D, A, C, xq_words, xp_words, e, f, g,
             e_h, f_h, g_h = e.tolist(), f.tolist(), g.tolist()
             f1_h, g1_h = f1.tolist(), g1.tolist()
             for q in coll:
-                recs.append((k, q, e_h[q], f_h[q], g_h[q]))
+                recs.append((kg, q, e_h[q], f_h[q], g_h[q]))
                 e_h[q], f_h[q], g_h[q] = _reset(
-                    k, f1_h[q], g1_h[q], dk, ak, xq_h[q], xp_h, Mp, nw)
+                    kg, f1_h[q], g1_h[q], dk, ak, xq_h[q], xp_h, Mp, nw)
             e, f, g = (torch.tensor(v, dtype=torch.int32, device=dev)
                        for v in (e_h, f_h, g_h))
             keep = ~(g1 <= f1)
@@ -194,7 +202,8 @@ def match_scan_indexed_plain(plane, D, A, C, xq_words, xp_words, e, f, g,
 
 def _reset(k, f1, g1, dk, ak, xq, xp, Mp, nw):
     """The reference's post-collapse reset (pbwtMatch.c:309-320) of one
-    query; returns the new (e, f, g)."""
+    query at global site k, dk and ak the divergence and prefix arrays after
+    it; returns the new (e, f, g)."""
     def bit(j):
         return (int(xq[j >> 5]) >> (8 * ((j >> 3) & 3) + 7 - (j & 7))) & 1
 
@@ -225,25 +234,31 @@ def _reset(k, f1, g1, dk, ak, xq, xp, Mp, nw):
 
 
 def match_scan_indexed(plane, D, A, C, xq_words, xp_words, e, f, g,
-                       cap: int):
+                       cap: int, first_site: int = 0):
     """Query scan against a stored trajectory (kernel K3).
 
     D (Ns, Mp), A (Ns+1, Mp), C (Ns,) from :func:`panel_trajectory` and
-    plane from :func:`rank_plane` of its rank table;
-    xq_words (Q, nw) and xp_words (Mp, nw) row words with nw*32 >= Ns;
-    e, f, g (Q,) the starting intervals. Returns (e, f, g) after the last
-    site (the flush carry), rec (cap, 5) int32 records (k, q, e, f, g) of the
-    interval before each collapse, and nrec (1,): the number of collapses.
-    nrec > cap means the buffer overflowed and the scan must run again with
-    a larger cap. The kernel appends records in no fixed order.
+    plane from :func:`rank_plane` of its rank table; their row k is global
+    site first_site + k (a multiple of 32), so that a scan can go on over
+    the tables of a later stretch of sites from a carried (e, f, g);
+    xq_words (Q, nw) and xp_words (Mp, nw) row words of the whole rows, with
+    nw*32 >= first_site + Ns; e, f, g (Q,) the starting intervals. Returns
+    (e, f, g) after the last site (the flush carry), rec (cap, 5) int32
+    records (k, q, e, f, g) of the interval before each collapse, k global,
+    and nrec (1,): the number of collapses. nrec > cap means the buffer
+    overflowed and the scan must run again with a larger cap. The kernel
+    appends records in no fixed order.
     """
+    if first_site < 0 or first_site % GROUP:
+        raise ValueError(f"match_scan_indexed: first site {first_site} is "
+                         f"not a multiple of {GROUP}")
     if plane.device.type == "cpu":
         return match_scan_indexed_plain(plane, D, A, C, xq_words, xp_words,
-                                        e, f, g, cap)
+                                        e, f, g, cap, first_site)
     dev = kernels.cuda_tensors(plane, D, A, C, xq_words, xp_words, e, f, g)
     Ns, Mp = D.shape
     Q, nw = xq_words.shape
-    if (nw * 32 < Ns or A.shape != (Ns + 1, Mp)
+    if (nw * 32 < first_site + Ns or A.shape != (Ns + 1, Mp)
             or plane.shape != (Ns, plane_blocks(Mp), PLANE_WORDS)
             or C.numel() != Ns or xp_words.shape != (Mp, nw)
             or not e.numel() == f.numel() == g.numel() == Q):
@@ -254,9 +269,9 @@ def match_scan_indexed(plane, D, A, C, xq_words, xp_words, e, f, g,
     kernels.launch("k3_match_scan", dev.index, plane.data_ptr(),
                    D.data_ptr(), A.data_ptr(), C.data_ptr(),
                    xq_words.data_ptr(),
-                   xp_words.data_ptr(), Ns, Mp, Q, nw, e.data_ptr(),
-                   f.data_ptr(), g.data_ptr(), rec.data_ptr(), cap,
-                   nrec.data_ptr(), kernels.stream(dev))
+                   xp_words.data_ptr(), Ns, Mp, Q, nw, int(first_site),
+                   e.data_ptr(), f.data_ptr(), g.data_ptr(), rec.data_ptr(),
+                   cap, nrec.data_ptr(), kernels.stream(dev))
     return e, f, g, rec, nrec
 
 
@@ -266,21 +281,27 @@ def sort_records(rec: torch.Tensor, nrec: int, Q: int) -> torch.Tensor:
     return rec[torch.argsort(rec[:, 0].long() * Q + rec[:, 1])]
 
 
-def expand_rows(A, rec, e, f, g, n_sites: int) -> torch.Tensor:
-    """Records (sorted) then the k = N flush -> (n, 4) int32 rows
-    (q, haplotype, start, end), each record's haplotypes in interval order.
+def expand_rows(A, rec, e, f, g, n_sites: int, first_site: int = 0,
+                flush: bool = True) -> torch.Tensor:
+    """Records (sorted) then, with flush, the k = N flush -> (n, 4) int32
+    rows (q, haplotype, start, end), each record's haplotypes in interval
+    order. A (Ns+1, Mp) holds the prefix arrays of the global sites
+    first_site .. first_site + Ns, and the records' sites lie among them.
     The flush rows read the final prefix array A[Ns] and report end =
-    n_sites. Flat indices are int64."""
+    n_sites; a stretch of sites that is not the last one of its panel
+    expands its records alone (flush=False). Flat indices are int64."""
     Ns, Mp = A.shape[0] - 1, A.shape[1]
-    Q = e.numel()
     dev = A.device
-    k = torch.cat([rec[:, 0].long(),
-                   torch.full((Q,), Ns, dtype=torch.long, device=dev)])
-    q = torch.cat([rec[:, 1], torch.arange(Q, dtype=torch.int32,
-                                           device=dev)])
-    start = torch.cat([rec[:, 2], e])
-    lo = torch.cat([rec[:, 3], f]).long()
-    width = (torch.cat([rec[:, 4], g]).long() - lo).clamp(min=0)
+    k = rec[:, 0].long() - first_site
+    q, start, lo, hi = rec[:, 1], rec[:, 2], rec[:, 3], rec[:, 4]
+    if flush:
+        Q = e.numel()
+        k = torch.cat([k, torch.full((Q,), Ns, dtype=torch.long, device=dev)])
+        q = torch.cat([q, torch.arange(Q, dtype=torch.int32, device=dev)])
+        start, lo, hi = (torch.cat([start, e]), torch.cat([lo, f]),
+                         torch.cat([hi, g]))
+    lo = lo.long()
+    width = (hi.long() - lo).clamp(min=0)
     total = int(width.sum())
     rid = torch.repeat_interleave(torch.arange(width.numel(), device=dev),
                                   width, output_size=total)
@@ -288,13 +309,37 @@ def expand_rows(A, rec, e, f, g, n_sites: int) -> torch.Tensor:
     pos = torch.arange(total, device=dev) - first[rid]
     kr = k[rid]
     ids = A.view(-1)[kr * Mp + lo[rid] + pos]
-    end = torch.where(kr == Ns, n_sites, kr).to(torch.int32)
+    end = (kr + first_site).to(torch.int32)
+    if flush:
+        end[rid >= rec.shape[0]] = n_sites
     return torch.stack([q[rid], ids, start[rid], end], 1)
 
 
+def traj_bytes() -> int:
+    """The budget of the trajectory tables: PBWT_TORCH_TRAJ_BYTES, else
+    TRAJ_BYTES."""
+    return int(os.environ.get("PBWT_TORCH_TRAJ_BYTES", TRAJ_BYTES))
+
+
+def table_bytes(Mp: int, groups: int) -> int:
+    """Bytes of the tables of a trajectory over `groups` groups of sites
+    while it is made: A, D and U (12 B a row a site, and A's last row), C,
+    and the rank plane."""
+    ns = groups * GROUP
+    return (12 * Mp * (ns + 1) + 4 * ns
+            + 4 * PLANE_WORDS * plane_blocks(Mp) * ns)
+
+
 class DeviceMatcher:
-    """Standing-panel matcher: the panel's trajectory is built once on the
-    device at construction; :meth:`match` serves query batches from it."""
+    """Standing-panel matcher. Where the panel's trajectory fits the budget
+    (:func:`traj_bytes`) it is built once on the device at construction and
+    :meth:`match` serves query batches from it. A larger panel keeps its
+    packed rows and group words alone, and every call walks it in segments
+    of ``gseg`` whole groups of sites: the trajectory from the carried
+    (a, d), the rank plane, the query scan from the carried (e, f, g), the
+    expansion of that segment's records, all in one set of tables sized for
+    a segment and made at the first call. The rows are the same, in the
+    same order."""
 
     def __init__(self, Xp: np.ndarray, device=None):
         M, N = Xp.shape
@@ -342,25 +387,85 @@ class DeviceMatcher:
         self.M, self.N = M, N
         self.Mp = pad_to(M, ROW_MULTIPLE)
         self.Ng = -(-N // GROUP)
-        need = 12 * self.Mp * (self.Ng * GROUP + 1)
-        if need > TRAJ_BYTES:
-            raise ValueError(
-                f"panel of {M} x {N} needs {need} bytes of trajectory, over "
-                f"the {TRAJ_BYTES}-byte budget; the segmented matcher for "
-                f"such panels is not ported yet (use python -m pbwt_tpu)")
+        # whole groups a segment: as many as the budget holds (one if it
+        # holds none), evened out over the segments
+        fixed = table_bytes(self.Mp, 0)
+        fit = max((traj_bytes() - fixed)
+                  // (table_bytes(self.Mp, 1) - fixed), 1)
+        self.nseg = -(-max(self.Ng, 1) // fit)
+        self.gseg = -(-self.Ng // self.nseg)
         self._caps: dict[int, int] = {}
 
     def _finish_init(self, xp_pad: torch.Tensor) -> None:
-        """Row words, group words, the trajectory and the rank plane from
-        the (Mp, 4*Ng) packbits rows on the device."""
+        """Row words and group words from the (Mp, 4*Ng) packbits rows on
+        the device; where one segment holds the panel, its trajectory and
+        rank plane, and the group words are dropped."""
         self.xp_words = xp_pad.view(torch.int32)              # (Mp, Ng)
-        W = _BITREV.to(self.device)[xp_pad.long()].view(torch.int32) \
+        self.W = _BITREV.to(self.device)[xp_pad.long()].view(torch.int32) \
             .t().contiguous()                                 # (Ng, Mp)
+        self._tables = None
+        self.A = self.D = self.C = self.plane = None
+        if self.nseg == 1:
+            self.A, self.D, self.C, self.plane = self._segment(
+                0, *self._start_ad())
+            self.W = None
+
+    def _start_ad(self):
         a0 = torch.arange(self.Mp, dtype=torch.int32, device=self.device)
         d0 = torch.zeros(self.Mp, dtype=torch.int32, device=self.device)
         d0[0] = 1
-        self.A, self.D, U, self.C = panel_trajectory(W, a0, d0)
-        self.plane = rank_plane(U, self.C)
+        return a0, d0
+
+    def _segment(self, seg: int, a, d):
+        """(A, D, C, plane) of segment seg from the prefix and divergence
+        arrays (a, d) that enter it. A standing panel's tables are new
+        tensors and its rank table is dropped; an over-budget panel's
+        segments all fill the one set of tables made at the first call."""
+        g0 = seg * self.gseg
+        W = self.W[g0:g0 + self.gseg]
+        if self.nseg == 1:
+            A, D, U, C = panel_trajectory(W, a, d)
+            return A, D, C, rank_plane(U, C)
+        if self._tables is None:
+            ns, Mp, dev = self.gseg * GROUP, self.Mp, self.device
+            self._tables = (
+                torch.empty((ns + 1, Mp), dtype=torch.int32, device=dev),
+                torch.empty((ns, Mp), dtype=torch.int32, device=dev),
+                torch.empty((ns, Mp), dtype=torch.int32, device=dev),
+                torch.empty(ns, dtype=torch.int32, device=dev),
+                torch.empty((ns, plane_blocks(Mp), PLANE_WORDS),
+                            dtype=torch.int32, device=dev))
+        n = W.shape[0] * GROUP
+        tA, tD, tU, tC, tP = self._tables
+        A, D, U, C = ad_trajectory(W, a, d, g0 * GROUP,
+                                   (tA[:n + 1], tD[:n], tU[:n], tC[:n]))
+        return A, D, C, rank_plane(U, C, tP[:n])
+
+    def _match_rows(self, xq_words: torch.Tensor, cap: int):
+        """(rows on the device, 0), or (None, the record count that did not
+        fit cap in some segment)."""
+        Q = xq_words.shape[0]
+        e = torch.zeros(Q, dtype=torch.int32, device=self.device)
+        f = torch.zeros(Q, dtype=torch.int32, device=self.device)
+        g = torch.full((Q,), self.Mp, dtype=torch.int32, device=self.device)
+        a, d = (None, None) if self.nseg == 1 else self._start_ad()
+        out = []
+        for seg in range(self.nseg):
+            first = seg * self.gseg * GROUP
+            if self.nseg == 1:
+                A, D, C, plane = self.A, self.D, self.C, self.plane
+            else:
+                A, D, C, plane = self._segment(seg, a, d)
+                a, d = A[-1].clone(), D[-1].clone()
+            e, f, g, rec, nrec = match_scan_indexed(
+                plane, D, A, C, xq_words, self.xp_words, e, f, g, cap, first)
+            nrec = int(nrec)
+            if nrec > cap:
+                return None, nrec
+            out.append(expand_rows(A, sort_records(rec, nrec, Q), e, f, g,
+                                   self.N, first,
+                                   flush=seg == self.nseg - 1))
+        return (out[0] if len(out) == 1 else torch.cat(out)), 0
 
     def match(self, Xq: np.ndarray) -> np.ndarray:
         """Set-maximal matches of the (Q, N) queries: (n, 4) int32 rows
@@ -373,18 +478,10 @@ class DeviceMatcher:
             .to(self.device)
         cap = self._caps.get(Q, pow2_at_least(max(REC_CAP, 128 * Q)))
         while True:
-            start = (torch.zeros(Q, dtype=torch.int32, device=self.device),
-                     torch.zeros(Q, dtype=torch.int32, device=self.device),
-                     torch.full((Q,), self.Mp, dtype=torch.int32,
-                                device=self.device))
-            e, f, g, rec, nrec = match_scan_indexed(
-                self.plane, self.D, self.A, self.C, xq_words, self.xp_words,
-                *start, cap=cap)
-            nrec = int(nrec)
-            if nrec <= cap:
+            rows, nrec = self._match_rows(xq_words, cap)
+            if rows is not None:
                 break
-            cap = pow2_at_least(nrec)          # overflow: run again larger
+            # overflow: again from the first segment, larger
+            cap = max(pow2_at_least(nrec), 2 * cap)
         self._caps[Q] = cap
-        rows = expand_rows(self.A, sort_records(rec, nrec, Q), e, f, g,
-                           self.N)
         return rows[rows[:, 1] < self.M].cpu().numpy()

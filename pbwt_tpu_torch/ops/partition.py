@@ -220,10 +220,11 @@ def _trajectory_tables(W: torch.Tensor):
     return A, D, U, C
 
 
-def ad_trajectory_plain(W: torch.Tensor, a0: torch.Tensor, d0: torch.Tensor):
+def ad_trajectory_plain(W: torch.Tensor, a0: torch.Tensor, d0: torch.Tensor,
+                        first_site: int = 0, out=None):
     """Plain twin of :func:`ad_trajectory`: site after site, the words
     regathered into the sort order where a group begins."""
-    A, D, U, C = _trajectory_tables(W)
+    A, D, U, C = out if out is not None else _trajectory_tables(W)
     A[0] = a0
     d = d0
     for t in range(W.shape[0]):
@@ -231,30 +232,47 @@ def ad_trajectory_plain(W: torch.Tensor, a0: torch.Tensor, d0: torch.Tensor):
         for s in range(GROUP):
             k = GROUP * t + s
             A[k + 1], d, w, U[k], C[k:k + 1] = partition_ad_step_plain(
-                A[k], d, w, s, k)
+                A[k], d, w, s, first_site + k)
             D[k] = d
     return A, D, U, C
 
 
-def ad_trajectory(W: torch.Tensor, a0: torch.Tensor, d0: torch.Tensor):
+def _check_tables(W: torch.Tensor, out) -> None:
+    Ng, Mp = W.shape
+    Ns = Ng * GROUP
+    want = ((Ns + 1, Mp), (Ns, Mp), (Ns, Mp), (Ns,))
+    if tuple(tuple(t.shape) for t in out) != want:
+        raise ValueError(f"ad_trajectory: tables of shapes "
+                         f"{[tuple(t.shape) for t in out]}, wanted {want}")
+
+
+def ad_trajectory(W: torch.Tensor, a0: torch.Tensor, d0: torch.Tensor,
+                  first_site: int = 0, out=None):
     """The divergence-carrying partition of every site of every group,
     written as the trajectory tables (kernel K2, one launch for all sites).
 
     W: (Ng, Mp) int32 group words in natural order; a0, d0: (Mp,) int32 the
-    start prefix and divergence arrays. Returns (A (Ns+1, Mp): A[k] the
-    prefix array before site k and A[Ns] the final one; D (Ns, Mp): the
-    divergence array after site k; U (Ns, Mp): the exclusive zero ranks of
-    site k over the pre-site order; C (Ns,): zeros at site k), all int32,
-    Ns = Ng*32. The kernel reads and writes the tables' rows themselves.
+    prefix and divergence arrays entering the first site; first_site: the
+    global number of that site, so that a trajectory can go on from a
+    carried (a, d) (site k of the call is site first_site + k: its
+    divergence values and the d[0] sentinel are global). Returns (A (Ns+1,
+    Mp): A[k] the prefix array before site k and A[Ns] the final one; D (Ns,
+    Mp): the divergence array after site k; U (Ns, Mp): the exclusive zero
+    ranks of site k over the pre-site order; C (Ns,): zeros at site k), all
+    int32, Ns = Ng*32. out: tables of those shapes to fill in place of new
+    ones (a0 and d0 must not be rows of them). The kernel reads and writes
+    the tables' rows themselves.
     """
+    if out is not None:
+        _check_tables(W, out)
     if W.device.type == "cpu":
-        return ad_trajectory_plain(W, a0, d0)
-    dev = kernels.cuda_tensors(W, a0, d0)
+        return ad_trajectory_plain(W, a0, d0, first_site, out)
+    A, D, U, C = out if out is not None else _trajectory_tables(W)
+    dev = kernels.cuda_tensors(W, a0, d0, A, D, U, C)
     Ng, Mp = W.shape
     if a0.numel() != Mp or d0.numel() != Mp:
         raise ValueError(f"ad_trajectory: W has {Mp} rows, a0 {a0.numel()}, "
                          f"d0 {d0.numel()}")
-    A, D, U, C = _trajectory_tables(W)
     A[0] = a0
     if Mp == 0 or Ng == 0:
         return A, D, U, C
@@ -263,8 +281,8 @@ def ad_trajectory(W: torch.Tensor, a0: torch.Tensor, d0: torch.Tensor):
     # through A[k], which here measured the same as carrying one
     kernels.launch("k2_partition_ad_step", dev.index, A.data_ptr(),
                    d0.data_ptr(), None, W.data_ptr(), W.stride(0), Mp,
-                   Ng * GROUP, 0, 0, A[1].data_ptr(), D.data_ptr(),
-                   U.data_ptr(), Mp, None, C.data_ptr(), scratch.data_ptr(),
-                   0, 0, kernels.stream(dev))
+                   Ng * GROUP, 0, int(first_site), A[1].data_ptr(),
+                   D.data_ptr(), U.data_ptr(), Mp, None, C.data_ptr(),
+                   scratch.data_ptr(), 0, 0, kernels.stream(dev))
     _raise_on_error(scratch, "k2_partition_ad_step")
     return A, D, U, C

@@ -231,3 +231,55 @@ def test_cli_io_commands_equal_host(tmp_path):
     assert outs["port"][1].keys() == {"o.pbwt", "o2.pbwt", "r.pbwt",
                                       "r.samples", "r.sites", "h.txt"}
     assert outs["port"] == outs["host"]
+
+
+@pytest.mark.parametrize("device", ["cpu", "0"])
+def test_cli_reference_impute_and_writers_equal_host(tmp_path, device):
+    """-referenceImpute on the device route (K5's twin) and on the port's
+    host route, then every writer of the imputed pbwt: the files and stdout
+    of the JAX package's CLI, byte for byte; the optional nSparse and
+    fSparse words are taken."""
+    Xref = _panel(21, 60, 90, switch=0.03)
+    Xt = _queries(Xref, 8, 22)
+    Xt ^= (np.random.RandomState(23).random_sample(Xt.shape) < 0.02
+           ).astype(np.uint8)
+    _write_vcf(tmp_path / "ref.vcf", Xref)
+    # the targets are typed at every third site only
+    lines = (tmp_path / "ref.vcf").read_text().splitlines()
+    _write_vcf(tmp_path / "all.vcf", Xt)
+    body = (tmp_path / "all.vcf").read_text().splitlines()
+    assert len(lines) == len(body) == 4 + 90
+    (tmp_path / "tgt.vcf").write_text(
+        "\n".join(body[:4] + body[4::3]) + "\n")
+    pipelines = [["-readVcfGT", "../ref.vcf", "-writeAll", "R"],
+                 ["-readVcfGT", "../tgt.vcf", "-referenceImpute", "R",
+                  "-writeAll", "OUT", "-writeVcf", "o.vcf", "-writeVcfGz",
+                  "o.vcf.gz", "-writeBcf", "o.bcf", "-writeBcfGz",
+                  "o.bcf.gz", "-writeGen", "o.gen", "-writeDosage",
+                  "o.dosage"],
+                 ["-readAll", "OUT", "-readDosage", "o.dosage", "-writeVcf",
+                  "-"],
+                 ["-readVcfGT", "../tgt.vcf", "-referenceImpute", "R", "2",
+                  "0.5", "-write", "o3.pbwt", "-haps", "-"]]
+    outs = {}
+    for side, argv0, env in (
+            ("port", [sys.executable, "-c", RUN_PORT],
+             {"PBWT_TORCH_DEVICE": device, "CUDA_VISIBLE_DEVICES": "",
+              "OMP_NUM_THREADS": "1"}),
+            ("host", [sys.executable, "-m", "pbwt_tpu"],
+             {"PBWT_TPU_DEVICE": "0"})):
+        d = tmp_path / side
+        d.mkdir()
+        stdout = []
+        for args in pipelines:
+            res = _run([*argv0, *args], env, cwd=d)
+            assert res.returncode == 0, res.stderr.decode()
+            stdout.append(res.stdout)
+        outs[side] = stdout, {f: (d / f).read_bytes()
+                              for f in sorted(os.listdir(d))}
+    assert {"OUT.pbwt", "OUT.sites", "OUT.dosage", "OUT.samples", "o.vcf",
+            "o.vcf.gz", "o.bcf", "o.bcf.gz", "o.gen", "o.dosage",
+            "o3.pbwt"} <= outs["port"][1].keys()
+    assert b"DR2=" in outs["port"][0][2] and b":ADS:DS:GP" in outs["port"][0][2]
+    assert outs["port"][1]["OUT.pbwt"] == outs["port"][1]["o3.pbwt"]
+    assert outs["port"] == outs["host"]

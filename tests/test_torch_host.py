@@ -185,6 +185,8 @@ def _native_case(name, native):
             return native.sweep_match(Y, a0, Yq, aq0).copy()
         yzq = ref_native.encode_cols(Yq)[0]
         return native.sweep_match_packed(yz, 300, yzq, 20, 50, a0, aq0).copy()
+    if name in ("segs_sort", "impute_vote_emit", "impute_emit"):
+        return _impute_case(name, native, X, yz, a0)
     assert name == "write_match_rows"
     rows = np.random.RandomState(9).randint(0, 10**6, size=(500, 4))
     rows[::7, 3] = rows[::7, 2]               # empty matches are not printed
@@ -193,7 +195,33 @@ def _native_case(name, native):
     return out.getvalue()
 
 
-@pytest.mark.parametrize("name", ["encode_cols", "natural_cols",
+def _impute_case(name, native, X, yz, a0):
+    """The imputation entries on 40 targets' segments against the 300
+    donors over a 25-site frame (every second site): unsorted rows with
+    equal starts for the sort; the streaming vote and the output stage on
+    the sorted ones, a target without segments among them."""
+    rng = np.random.RandomState(21)
+    T, n = 40, 700
+    start = rng.randint(0, 20, size=n)
+    rows = np.stack([rng.randint(0, T, size=n), rng.randint(0, 300, size=n),
+                     start, start + rng.randint(1, 8, size=n)], 1)
+    rows = rows[rows[:, 0] != 17].astype(np.int64)
+    if name == "segs_sort":
+        return native.segs_sort(rows, T)
+    kold = ((np.arange(50) + 1) // 2).astype(np.int64)
+    if name == "impute_vote_emit":
+        jr, s_, e_, off = ref_native.segs_sort(rows, T)
+        return native.impute_vote_emit(yz, 300, 50, a0, None, off, T, kold,
+                                       seg_cols=(jr, s_, e_))
+    dos = rng.randint(0, 21, size=(50, T)) / 20.0
+    dos[:, :9] = 0.0                         # long runs of one level
+    return native.impute_emit((dos > 0.5).astype(np.uint8), dos,
+                              rng.permutation(T).astype(np.int32))
+
+
+@pytest.mark.parametrize("name", ["segs_sort", "impute_vote_emit",
+                                  "impute_emit",
+                                  "encode_cols", "natural_cols",
                                   "transpose_u8", "build_pbwt",
                                   "write_match_rows", "decode_cols",
                                   "col_counts", "build_pbwt_chunk",
@@ -362,6 +390,90 @@ def _queries(Xp, Q, seed):
             Xq[q, pos:pos + seg] = Xp[r.randint(Xp.shape[0]), pos:pos + seg]
             pos += seg
     return Xq
+
+
+def _with_sites(pbwt_mod, registry, X, dosage_seed=None):
+    """X as a PBWT of that package with sites, chrom and samples and, with
+    a seed, a dosage track."""
+    vid = registry.variation("A", "C")
+    vid2 = registry.variation("G", "T")
+    sites = [pbwt_mod.Site(x=100 + 7 * i, varD=vid2 if i % 5 == 0 else vid,
+                           refFreq=0.125 * (i % 8), imputeInfo=0.5 + i % 2)
+             for i in range(X.shape[1])]
+    p = pbwt_mod.PBWT.from_haplotypes(X, chrom="20", sites=sites)
+    p.samples = [registry.sample_add(f"s{i // 2}")
+                 for i in range(p.M)]
+    return p
+
+
+def _add_dosage(p, impute_mod, seed):
+    rng = np.random.RandomState(seed)
+    zbuf, offsets = bytearray(), []
+    Y = p.decoded(True)
+    for k in range(p.N):
+        d = np.where(rng.random_sample(p.M) < 0.6, Y[k].astype(np.float64),
+                     rng.randint(0, 21, size=p.M) / 20.0)
+        impute_mod.dosage_store(p, d, k, zbuf, offsets)
+    p.zDosage = bytes(zbuf)
+    p.dosageOffset = np.array(offsets, np.int64)
+    p.isRefFreq = True
+
+
+@pytest.mark.parametrize("dosage", [False, True])
+@pytest.mark.parametrize("mode,name", [("w", "o.vcf"), ("wz", "o.vcf.gz"),
+                                       ("wbu", "o.bcf"), ("wb", "o.bcf.gz"),
+                                       ("gen", "o.gen")])
+def test_writers_match_jax_package(tmp_path, mode, name, dosage):
+    """write_vcf in its four modes and write_gen: the bytes of the JAX
+    package's writers, with and without a dosage track; the dosage file
+    reads back."""
+    import pbwt_tpu.algos.impute as ref_impute
+    import pbwt_tpu_torch.algos.impute as port_impute
+    X = _panel(31, 12, 23)
+    out = {}
+    for tag, pbwt_mod, registry, vcf, textformats, impute, pbwtfile in (
+            ("port", port_pbwt, port_registry, port_vcf, port_textformats,
+             port_impute, port_pbwtfile),
+            ("ref", ref_pbwt, ref_registry, ref_vcf, ref_textformats,
+             ref_impute, ref_pbwtfile)):
+        registry.command_line = "-readAll x -writeVcf y"
+        p = _with_sites(pbwt_mod, registry, X)
+        if dosage:
+            _add_dosage(p, impute, 5)
+        path = str(tmp_path / f"{tag}.{name}")
+        if mode == "gen":
+            with open(path, "w") as fp:
+                textformats.write_gen(p, fp)
+        else:
+            vcf.write_vcf(p, path, None, mode)
+        with open(path, "rb") as fp:
+            out[tag] = fp.read()
+        if dosage:
+            buf = io.BytesIO()
+            pbwtfile.write_dosage(p, buf)
+            out[tag + "_dosage"] = buf.getvalue()
+            q = pbwt_mod.PBWT(p.M, p.N)
+            pbwtfile.read_dosage(q, io.BytesIO(buf.getvalue()))
+            assert q.zDosage == p.zDosage
+            assert np.array_equal(q.dosageOffset, p.dosageOffset)
+            y = p.decoded(True)[3]
+            assert np.array_equal(impute.dosage_retrieve(q, y, 3),
+                                  impute.dosage_retrieve(p, y, 3))
+    assert len(out["port"]) > 100 and out["port"] == out["ref"]
+    assert out.get("port_dosage") == out.get("ref_dosage")
+
+
+def test_crand_is_glibc_rand():
+    """The port's copy of the glibc rand() stream: the first draws of the
+    unseeded generator, and the JAX package's class draw for draw."""
+    import pbwt_tpu.core.crand as ref_crand
+    import pbwt_tpu_torch.core.crand as port_crand
+    port_crand.reset(1)
+    assert [port_crand.rand() for _ in range(3)] == [1804289383, 846930886,
+                                                     1681692777]
+    a, b = port_crand.GlibcRand(12345), ref_crand.GlibcRand(12345)
+    assert [a.next() for _ in range(500)] == [b.next() for _ in range(500)]
+    assert port_crand.RAND_MAX == ref_crand.RAND_MAX
 
 
 @pytest.mark.parametrize("which", ["indexed", "sweep", "sweep_callback"])

@@ -135,10 +135,141 @@ def test_from_pbwt_equals_dense(jax_matcher):
     assert np.array_equal(stream.match(Xq[:, :90]), dense.match(Xq[:, :90]))
 
 
-def test_over_budget_panel_raises(monkeypatch):
-    monkeypatch.setattr(match, "TRAJ_BYTES", 1000)
-    with pytest.raises(ValueError, match="segmented matcher"):
-        match.DeviceMatcher(np.zeros((10, 40), np.uint8), device="cpu")
+def _budget(groups, Mp=2048):
+    """A trajectory budget that holds `groups` groups of sites a segment."""
+    return match.table_bytes(Mp, groups)
+
+
+@pytest.mark.parametrize("Q,seed", [(20, 1), (7, 2)])
+@pytest.mark.parametrize("groups,nseg", [(3, 1), (2, 2), (1, 3), (0, 3)])
+def test_segment_route_rows_match_standing_and_jax(jax_matcher, monkeypatch,
+                                                   groups, nseg, Q, seed):
+    """A panel over the trajectory budget no longer raises: it is walked in
+    segments of whole groups every call, and the rows are those of the
+    standing route and of the JAX matcher, in order. Budgets that hold all
+    three groups (the standing route), two (segments of 2 + 1), one, and
+    not even one (a group a segment all the same)."""
+    Xp, jm = jax_matcher
+    Xq = queries(Xp, Q, seed)
+    want = match.DeviceMatcher(Xp, device="cpu").match(Xq)
+    monkeypatch.setenv("PBWT_TORCH_TRAJ_BYTES", str(_budget(groups)))
+    tm = match.DeviceMatcher(Xp, device="cpu")
+    assert tm.nseg == nseg and tm.nseg * tm.gseg >= tm.Ng == 3
+    assert (tm.A is None) == (nseg > 1) == (tm.W is not None)
+    rows = tm.match(Xq)
+    assert rows.dtype == np.int32 and len(rows) > Q
+    assert np.array_equal(rows, want)
+    assert np.array_equal(rows, np.asarray(jm.match(Xq)))
+
+
+def test_segment_route_pad_sites_reuse_and_launches(jax_matcher, monkeypatch):
+    """90 sites in segments of one group: the last segment ends in pad
+    sites. One matcher serves batches of two widths from one set of tables,
+    with one trajectory call, one plane and one scan a segment, each at its
+    first site."""
+    Xp, _ = jax_matcher
+    Xp = np.ascontiguousarray(Xp[:, :90])
+    dense = match.DeviceMatcher(Xp, device="cpu")
+    batches = [queries(Xp, Q, seed) for Q, seed in [(20, 1), (7, 2)]]
+    wants = [dense.match(Xq) for Xq in batches]
+    monkeypatch.setattr(match, "TRAJ_BYTES", _budget(1))
+    tm = match.DeviceMatcher(Xp, device="cpu")
+    assert (tm.nseg, tm.gseg) == (3, 1)
+    calls = []
+    for name in ("ad_trajectory", "rank_plane", "match_scan_indexed"):
+        real = getattr(match, name)
+        monkeypatch.setattr(
+            match, name, lambda *a, _n=name, _r=real, **kw:
+            calls.append((_n, a[3] if _n == "ad_trajectory" else
+                          a[10] if _n == "match_scan_indexed" else None))
+            or _r(*a, **kw))
+    tables = None
+    for Xq, want in zip(batches, wants):
+        del calls[:]
+        assert np.array_equal(tm.match(Xq), want)
+        assert calls == [(n, k) for first in (0, 32, 64) for n, k in
+                         (("ad_trajectory", first), ("rank_plane", None),
+                          ("match_scan_indexed", first))]
+        assert tables is None or all(t is u for t, u in
+                                     zip(tables, tm._tables))
+        tables = tm._tables
+    assert tables[0].shape == (33, tm.Mp)
+
+
+def test_segment_route_record_overflow_reruns(jax_matcher, monkeypatch):
+    """A record buffer too small for some segment: the call runs again from
+    the first segment with a larger one, to the same rows."""
+    Xp, _ = jax_matcher
+    Xq = queries(Xp, 7, 2)
+    want = match.DeviceMatcher(Xp, device="cpu").match(Xq)
+    monkeypatch.setattr(match, "TRAJ_BYTES", _budget(1))
+    tm = match.DeviceMatcher(Xp, device="cpu")
+    firsts = []
+    real = match.match_scan_indexed
+    monkeypatch.setattr(match, "match_scan_indexed",
+                        lambda *a: firsts.append((a[9], a[10])) or real(*a))
+    tm._caps[7] = 4
+    assert np.array_equal(tm.match(Xq), want)
+    assert tm._caps[7] > 4
+    caps = sorted({c for c, _ in firsts})
+    assert caps[0] == 4 and len(caps) > 1
+    # every cap begins at the first segment; the last one reaches the end
+    for c in caps:
+        assert [k for cc, k in firsts if cc == c][0] == 0
+    assert [k for c, k in firsts if c == caps[-1]] == [0, 32, 64]
+
+
+def test_segment_route_from_pbwt(jax_matcher, monkeypatch):
+    from pbwt_tpu.core.pbwt import PBWT
+    Xp, _ = jax_matcher
+    Xq = queries(Xp, 7, 3)[:, :90]
+    p = PBWT.from_haplotypes(Xp[:, :90])
+    want = match.DeviceMatcher(Xp[:, :90], device="cpu").match(Xq)
+    monkeypatch.setenv("PBWT_TORCH_TRAJ_BYTES", str(_budget(2)))
+    tm = match.DeviceMatcher.from_pbwt(p, device="cpu", chunk_sites=32)
+    assert tm.nseg == 2
+    assert np.array_equal(tm.match(Xq), want)
+
+
+def test_scan_and_expansion_from_a_first_site(jax_matcher):
+    """K3's twin over the second half of a trajectory from the carried
+    (e, f, g), and the expansion of its records against that half's prefix
+    arrays, against the whole scan; a first site inside a word is refused."""
+    Xp, _ = jax_matcher
+    Xq = queries(Xp, 20, 1)
+    tm = match.DeviceMatcher(Xp, device="cpu")
+    Q, cut = len(Xq), 64
+    xq = torch.from_numpy(match.pack_row_words(Xq, tm.Ng))
+    start = (torch.zeros(Q, dtype=torch.int32),
+             torch.zeros(Q, dtype=torch.int32),
+             torch.full((Q,), tm.Mp, dtype=torch.int32))
+    whole = match.match_scan_indexed(tm.plane, tm.D, tm.A, tm.C, xq,
+                                     tm.xp_words, *start, cap=4096)
+    h1 = match.match_scan_indexed(tm.plane[:cut], tm.D[:cut], tm.A[:cut + 1],
+                                  tm.C[:cut], xq, tm.xp_words, *start,
+                                  cap=4096)
+    h2 = match.match_scan_indexed(tm.plane[cut:], tm.D[cut:], tm.A[cut:],
+                                  tm.C[cut:], xq, tm.xp_words, *h1[:3],
+                                  cap=4096, first_site=cut)
+    n, n1, n2 = int(whole[4]), int(h1[4]), int(h2[4])
+    assert n == n1 + n2 and n1 > 0 and n2 > 0
+    for got, want in zip(h2[:3], whole[:3]):
+        assert torch.equal(got, want)
+    rec = match.sort_records(whole[3], n, Q)
+    rec1, rec2 = (match.sort_records(h[3], m, Q)
+                  for h, m in ((h1, n1), (h2, n2)))
+    assert torch.equal(torch.cat([rec1, rec2]), rec)
+    assert int(rec2[:, 0].min()) >= cut
+    rows = match.expand_rows(tm.A, rec, *whole[:3], tm.N)
+    parts = [match.expand_rows(tm.A[:cut + 1], rec1, *h1[:3], tm.N,
+                               flush=False),
+             match.expand_rows(tm.A[cut:], rec2, *h2[:3], tm.N,
+                               first_site=cut)]
+    assert torch.equal(torch.cat(parts), rows)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        match.match_scan_indexed(tm.plane[40:], tm.D[40:], tm.A[40:],
+                                 tm.C[40:], xq, tm.xp_words, *start,
+                                 cap=4096, first_site=40)
 
 
 def test_trajectory_through_port_padding_matches_jax(jax_matcher):
@@ -170,7 +301,8 @@ def test_matcher_trajectory_is_one_wrapper_call(jax_matcher, monkeypatch):
     calls = []
     real = match.ad_trajectory
     monkeypatch.setattr(match, "ad_trajectory",
-                        lambda *a: calls.append(a[0].shape) or real(*a))
+                        lambda *a, **kw: calls.append(a[0].shape)
+                        or real(*a, **kw))
     tm = match.DeviceMatcher(Xp, device="cpu")
     assert calls == [(tm.Ng, tm.Mp)]
 
@@ -262,7 +394,8 @@ def test_matcher_makes_one_plane_a_trajectory(jax_matcher, monkeypatch):
     calls = []
     real = match.rank_plane
     monkeypatch.setattr(match, "rank_plane",
-                        lambda U, C: calls.append(U.shape) or real(U, C))
+                        lambda U, C, *out: calls.append(U.shape)
+                        or real(U, C, *out))
     tm = match.DeviceMatcher(Xp, device="cpu")
     assert calls == [(tm.Ng * 32, tm.Mp)]
     tm.match(queries(Xp, 5, 4))

@@ -144,6 +144,41 @@ def test_ad_trajectory_matches_jax(Mp):
     assert kernels.LAUNCHES == before    # CPU tensors never reach a kernel
 
 
+@pytest.mark.parametrize("Ng,cut", [(2, 1), (3, 1), (3, 2)])
+def test_ad_trajectory_carried_halves_match_whole_and_jax(Ng, cut):
+    """A trajectory made in two calls, the second from the first's carried
+    (a, d) and first site (into tables handed in), is the whole one row for
+    row, and the JAX package's."""
+    Mp = 256
+    W, a0, d0 = _trajectory_inputs(Ng + cut, Ng, Mp)
+    whole = partition.ad_trajectory(_t(W), _t(a0), _t(d0))
+    A1, D1, U1, C1 = partition.ad_trajectory(_t(W[:cut]), _t(a0), _t(d0))
+    n2 = (Ng - cut) * 32
+    out = (torch.full((n2 + 1, Mp), -7, dtype=torch.int32),
+           torch.full((n2, Mp), -7, dtype=torch.int32),
+           torch.full((n2, Mp), -7, dtype=torch.int32),
+           torch.full((n2,), -7, dtype=torch.int32))
+    got = partition.ad_trajectory(_t(W[cut:]), A1[-1].clone(), D1[-1].clone(),
+                                  first_site=32 * cut, out=out)
+    assert all(g is o for g, o in zip(got, out))
+    A2, D2, U2, C2 = got
+    halves = (torch.cat([A1, A2[1:]]), torch.cat([D1, D2]),
+              torch.cat([U1, U2]), torch.cat([C1, C2]))
+    a_end, A_pre, D8, _, U8, C = match_jax.panel_trajectory(
+        jnp.asarray(W), jnp.asarray(a0), jnp.asarray(d0))
+    want = convert.trajectory_from_jax(*(np.asarray(x) for x in
+                                         (a_end, A_pre, D8, U8, C)))
+    for h, w, j in zip(halves, whole, want):
+        assert torch.equal(h, w)
+        assert np.array_equal(h.numpy(), j)
+    # the sentinel d[0] = k + 2 is global: without the first site it is not
+    local = partition.ad_trajectory(_t(W[cut:]), A1[-1].clone(),
+                                    D1[-1].clone())
+    assert not torch.equal(local[1], D2)
+    with pytest.raises(ValueError, match="tables"):
+        partition.ad_trajectory(_t(W), _t(a0), _t(d0), out=out)
+
+
 def test_ad_trajectory_rejects_what_the_kernel_does_not_take():
     """On a CUDA tensor the wrappers launch or raise; a tensor of another
     type or layout is refused before any launch (checked here without a

@@ -179,8 +179,8 @@ SAME = {
     "bypass_l1": [(LOAD, LOAD.replace("__ldg", "__ldcg"))],
 }
 CUTS = {
-    "no_reset": [("        int3 r = group_reset(D, A, xq, xp_words, k, f1, "
-                  "g1, mp, nw, t);\n",
+    "no_reset": [("        int3 r = group_reset(D, A, xq, xp_words, k, k0, "
+                  "f1, g1, mp, nw, t);\n",
                   "        int3 r = make_int3(k + 1, 0, mp);\n")],
     "u_table": [("      for (int s = 0; s < send; ++s, site += plane_stride) {\n",
                  "      for (int s = 0; s < send; ++s, site += mp) {\n"),
@@ -376,7 +376,7 @@ class Probe:
         nrec = torch.zeros(1, dtype=torch.int32, device=self.dev)
         err = lib.k3_match_scan(
             0, table.data_ptr(), D.data_ptr(), A.data_ptr(), C.data_ptr(),
-            xq.data_ptr(), xp.data_ptr(), Ns, Mp, Q, nw, e.data_ptr(),
+            xq.data_ptr(), xp.data_ptr(), Ns, Mp, Q, nw, 0, e.data_ptr(),
             f.data_ptr(), g.data_ptr(), rec.data_ptr(), cap, nrec.data_ptr(),
             self.kernels.stream(self.dev))
         if err:
