@@ -118,14 +118,6 @@ def _collect_matches(p_frame: PBWT, p_old: PBWT) -> np.ndarray:
     return rows
 
 
-def seg_offsets(targets: np.ndarray, T: int) -> np.ndarray:
-    """(T+1,) int64 offsets of each target's run in target-sorted
-    segments."""
-    off = np.zeros(T + 1, np.int64)
-    np.cumsum(np.bincount(targets, minlength=T), out=off[1:])
-    return off
-
-
 def _vote_all_sites(segments: np.ndarray, T: int, Xref_nat: np.ndarray,
                     kold_of_kref: np.ndarray, ref_freq: np.ndarray,
                     chunk: int = 512):
@@ -142,7 +134,8 @@ def _vote_all_sites(segments: np.ndarray, T: int, Xref_nat: np.ndarray,
         dosage = np.broadcast_to(ref_freq, (T, Nref)).copy()
         return (dosage > 0.5).astype(np.uint8), dosage, np.zeros(
             (T, Nref), bool)
-    off = seg_offsets(segments[:, 0], T)
+    off = np.zeros(T + 1, np.int64)
+    np.cumsum(np.bincount(segments[:, 0], minlength=T), out=off[1:])
     jref = segments[:, 1]
     s0 = segments[:, 2][:, None].astype(np.float64)
     e0 = segments[:, 3][:, None].astype(np.float64)

@@ -28,7 +28,6 @@ Commands:
   -haps <file>              write haplotype file; '-' for stdout
   -writeGen <file>          write impute2 gen file; '-' for stdout
   -writeVcf|-writeVcfGz|-writeBcf|-writeBcfGz <file>  write VCF/BCF
-  -referenceFasta <file>    reference fasta for VCF/BCF writing
   -matchIndexed <file>      maximal match seqs in pbwt file to reference
   -matchDynamic <file>      maximal match seqs in pbwt file to reference
   -referenceImpute <root> [nSparse=1] [fSparse=1]  impute into reference
@@ -43,8 +42,8 @@ _NARGS = {"-check": 0, "-stats": 0, "-log": 1, "-read": 1, "-readAll": 1,
           "-readVcfGT": 1, "-readDosage": 1, "-write": 1, "-writeDosage": 1,
           "-writeAll": 1, "-haps": 1, "-writeGen": 1, "-writeVcf": 1,
           "-writeVcfGz": 1, "-writeBcf": 1, "-writeBcfGz": 1,
-          "-referenceFasta": 1, "-matchIndexed": 1, "-matchDynamic": 1,
-          "-referenceImpute": 1, "-fitAlphaBeta": 1, "-llCopyModel": 2}
+          "-matchIndexed": 1, "-matchDynamic": 1, "-referenceImpute": 1,
+          "-fitAlphaBeta": 1, "-llCopyModel": 2}
 _VCF_MODES = {"-writeVcf": "w", "-writeVcfGz": "wz", "-writeBcf": "wbu",
               "-writeBcfGz": "wb"}
 
@@ -98,7 +97,6 @@ def _main(argv: list[str] | None) -> int:
         sys.stderr.write(HELP)
         return 0
     p = None
-    reference_fasta = None
     utils.time_update()
     while argv:
         cmd = argv[0]
@@ -149,9 +147,7 @@ def _main(argv: list[str] | None) -> int:
             textformats.write_gen(p, fp)
             _close(fp, arg)
         elif cmd in _VCF_MODES:
-            vcf.write_vcf(p, arg, reference_fasta, _VCF_MODES[cmd])
-        elif cmd == "-referenceFasta":
-            reference_fasta = arg
+            vcf.write_vcf(p, arg, None, _VCF_MODES[cmd])
         elif cmd == "-referenceImpute":
             # optional [nSparse] [fSparse]: the words up to the next command
             extra = []

@@ -832,8 +832,7 @@ overflow:
    column, RLE-encode the quantised dosages, and advance both prefix
    arrays.  Live memory is O(Mref + T) — the reference's cursor memory
    model — so none of the (Nref x T) / (Nref x Mref) intermediates of the
-   split vote/emit pipeline are ever materialised (their page-fault cost
-   dominates wall time in this sandbox).
+   split vote/emit pipeline are ever materialised.
    segments must be sorted by (target, start); first[] = seg_off[:-1].
    Returns total no-vote conflicts, or -1 on corrupt stream / overflow. */
 EXPORT long impute_vote_emit(

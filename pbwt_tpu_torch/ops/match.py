@@ -399,16 +399,18 @@ class DeviceMatcher:
     def _finish_init(self, xp_pad: torch.Tensor) -> None:
         """Row words and group words from the (Mp, 4*Ng) packbits rows on
         the device; where one segment holds the panel, its trajectory and
-        rank plane, and the group words are dropped."""
+        rank plane in place of the group words."""
         self.xp_words = xp_pad.view(torch.int32)              # (Mp, Ng)
-        self.W = _BITREV.to(self.device)[xp_pad.long()].view(torch.int32) \
+        W = _BITREV.to(self.device)[xp_pad.long()].view(torch.int32) \
             .t().contiguous()                                 # (Ng, Mp)
         self._tables = None
-        self.A = self.D = self.C = self.plane = None
         if self.nseg == 1:
-            self.A, self.D, self.C, self.plane = self._segment(
-                0, *self._start_ad())
             self.W = None
+            self.A, self.D, U, self.C = panel_trajectory(W, *self._start_ad())
+            self.plane = rank_plane(U, self.C)
+        else:
+            self.W = W
+            self.A = self.D = self.C = self.plane = None
 
     def _start_ad(self):
         a0 = torch.arange(self.Mp, dtype=torch.int32, device=self.device)
@@ -417,15 +419,9 @@ class DeviceMatcher:
         return a0, d0
 
     def _segment(self, seg: int, a, d):
-        """(A, D, C, plane) of segment seg from the prefix and divergence
-        arrays (a, d) that enter it. A standing panel's tables are new
-        tensors and its rank table is dropped; an over-budget panel's
-        segments all fill the one set of tables made at the first call."""
-        g0 = seg * self.gseg
-        W = self.W[g0:g0 + self.gseg]
-        if self.nseg == 1:
-            A, D, U, C = panel_trajectory(W, a, d)
-            return A, D, C, rank_plane(U, C)
+        """(A, D, C, plane) of segment seg of an over-budget panel from the
+        prefix and divergence arrays (a, d) that enter it, in the one set of
+        tables that all segments fill, made at the first call."""
         if self._tables is None:
             ns, Mp, dev = self.gseg * GROUP, self.Mp, self.device
             self._tables = (
@@ -435,6 +431,8 @@ class DeviceMatcher:
                 torch.empty(ns, dtype=torch.int32, device=dev),
                 torch.empty((ns, plane_blocks(Mp), PLANE_WORDS),
                             dtype=torch.int32, device=dev))
+        g0 = seg * self.gseg
+        W = self.W[g0:g0 + self.gseg]
         n = W.shape[0] * GROUP
         tA, tD, tU, tC, tP = self._tables
         A, D, U, C = ad_trajectory(W, a, d, g0 * GROUP,
@@ -448,13 +446,12 @@ class DeviceMatcher:
         e = torch.zeros(Q, dtype=torch.int32, device=self.device)
         f = torch.zeros(Q, dtype=torch.int32, device=self.device)
         g = torch.full((Q,), self.Mp, dtype=torch.int32, device=self.device)
-        a, d = (None, None) if self.nseg == 1 else self._start_ad()
+        A, D, C, plane = self.A, self.D, self.C, self.plane   # if standing
+        a, d = self._start_ad() if A is None else (None, None)
         out = []
         for seg in range(self.nseg):
             first = seg * self.gseg * GROUP
-            if self.nseg == 1:
-                A, D, C, plane = self.A, self.D, self.C, self.plane
-            else:
+            if self.A is None:
                 A, D, C, plane = self._segment(seg, a, d)
                 a, d = A[-1].clone(), D[-1].clone()
             e, f, g, rec, nrec = match_scan_indexed(
@@ -481,7 +478,7 @@ class DeviceMatcher:
             rows, nrec = self._match_rows(xq_words, cap)
             if rows is not None:
                 break
-            # overflow: again from the first segment, larger
-            cap = max(pow2_at_least(nrec), 2 * cap)
+            cap = pow2_at_least(nrec)    # overflow: run again, larger,
+                                         # from the first segment
         self._caps[Q] = cap
         return rows[rows[:, 1] < self.M].cpu().numpy()

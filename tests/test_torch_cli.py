@@ -98,13 +98,18 @@ def _write_vcf(path, X):
             f.write(f"20\t{1000 + 10 * k}\t.\tA\tG\t.\tPASS\t.\tGT\t{gts}\n")
 
 
+@pytest.mark.parametrize("budget", [None, "1"])
 @pytest.mark.parametrize("cmd", ["-matchDynamic", "-matchIndexed"])
-def test_cli_match_equals_host(files, cmd):
+def test_cli_match_equals_host(files, cmd, budget):
+    """With a trajectory budget of one byte the matcher walks the panel a
+    group of sites a segment: the same stdout."""
     p, q = files
     args = ["-read", p, cmd, q]
-    port = _run([sys.executable, "-c", RUN_PORT, *args],
-                {"PBWT_TORCH_DEVICE": "cpu", "CUDA_VISIBLE_DEVICES": "",
-                 "OMP_NUM_THREADS": "1"})
+    env = {"PBWT_TORCH_DEVICE": "cpu", "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "1"}
+    if budget:
+        env["PBWT_TORCH_TRAJ_BYTES"] = budget
+    port = _run([sys.executable, "-c", RUN_PORT, *args], env)
     assert port.returncode == 0, port.stderr.decode()
     ref = _run([sys.executable, "-m", "pbwt_tpu", *args],
                {"PBWT_TPU_DEVICE": "0"})
