@@ -1,18 +1,19 @@
 """Reference imputation: the dosage codec and imputation by weighted
 maximal-match voting (pbwtImpute.c).
 
-Counterpart of ``pbwt_tpu/algos/impute.py`` for ``-referenceImpute``: the
-dosage codec, ``reference_impute3`` for a target panel that is not its own
-frame, and ``reference_impute``. The matches are collected on the host (the
-C sweep, or the callback sweep without the C runtime); the votes are taken
-by the streaming C pass on the host, by kernel K5 on the device engine when
-:func:`pbwt_tpu_torch.ops.device_requested` says so, or by numpy without the
-C runtime. All three give the same bytes: a vote's weights are integers, so
-its f64 sums are exact in any order.
+Counterpart of ``pbwt_tpu/algos/impute.py`` for ``-referenceImpute`` and
+``-imputeMissing``: the dosage codec, ``reference_impute3``,
+``reference_impute`` and ``impute_missing``. The matches are collected on
+the host (the C sweep or, for -imputeMissing, the C within-panel scan; the
+callback matchers without the C runtime); the votes are taken by the
+streaming C pass on the host, by kernel K5 on the device engine when
+:func:`pbwt_tpu_torch.ops.device_requested` says so (not for
+-imputeMissing, whose pass is host C in the reference too), or by numpy
+without the C runtime. All three give the same bytes: a vote's weights are
+integers, so its f64 sums are exact in any order.
 
-Not in the port yet (served by ``python -m pbwt_tpu``): the self-impute mode
-of ``reference_impute3`` (``-imputeMissing``) with its within-panel match
-collectors, ``-genotypeCompare`` and the corruption utilities.
+Not in the port yet (served by ``python -m pbwt_tpu``): ``-genotypeCompare``
+and the corruption utilities.
 """
 
 from __future__ import annotations
@@ -170,6 +171,51 @@ def _vote_all_sites(segments: np.ndarray, T: int, Xref_nat: np.ndarray,
     return x, dosage, voted
 
 
+def _within_segments(p_frame: PBWT):
+    """The maximal within-panel matches of every haplotype of the frame,
+    as imputeMissing's targets (pbwtImpute.c:1143-1159): (jRef, start, end)
+    int32 columns, each target's sorted by start (report order among equal
+    starts), and the (T+1,) offsets of the targets' runs."""
+    T = p_frame.M
+    if p_frame.N == 0 and not registry.is_check:
+        # every match of an empty frame is the degenerate (0, 0), whose
+        # weight is never positive: no segment votes (-check logs counts)
+        empty = np.zeros(0, np.int32)
+        return empty, empty, empty, np.zeros(T + 1, np.int64)
+    a0 = (p_frame.aFstart if p_frame.aFstart is not None
+          else np.arange(T, dtype=np.int32))
+    if p_frame.yz and native.get_lib() is not None:
+        # two passes of the C scan straight into per-target runs, sorted by
+        # start in place: the (n, 4) row set is never held
+        cols = native.max_within_bucketed(p_frame.yz, T, p_frame.N, a0)
+        native.buckets_sort_start(*cols)
+        return cols
+    reports: list[tuple[int, int, int, int]] = []
+    matchmod.match_maximal_within(
+        p_frame, lambda ai, bi, s, e: reports.append((ai, bi, s, e)))
+    rows = np.asarray(reports, np.int64).reshape(-1, 4)
+    rows = rows[np.lexsort((rows[:, 2], rows[:, 0]))]
+    seg_off = np.zeros(T + 1, np.int64)
+    np.cumsum(np.bincount(rows[:, 0], minlength=T), out=seg_off[1:])
+    return (*(np.ascontiguousarray(rows[:, c], np.int32) for c in (1, 2, 3)),
+            seg_off)
+
+
+def _missing_mask(p: PBWT) -> np.ndarray:
+    """(M, N) bool: the entries of p marked missing, in natural order (each
+    site's pack3 column of the missing stream, offset 0 = none)."""
+    miss = np.zeros((p.M, p.N), bool)
+    if p.missingOffset is None:
+        return miss
+    buf = np.frombuffer(p.zMissing, np.uint8)
+    for k in np.flatnonzero(p.missingOffset):
+        off = int(p.missingOffset[k])
+        syms, lens = p3.decode_lengths(buf[off:off + p.M])
+        n = int(np.searchsorted(np.cumsum(lens), p.M)) + 1
+        miss[:, k] = np.repeat(syms[:n], lens[:n])[:p.M] != 0
+    return miss
+
+
 def _frame_coordinates(p_ref: PBWT, p_frame: PBWT) -> np.ndarray:
     """Frame coordinate per reference site (the kOld the serial loop would
     hold at that site, pbwtImpute.c:1185-1190)."""
@@ -205,23 +251,27 @@ def reference_impute3(p_old: PBWT, p_ref: PBWT, p_frame: PBWT,
     if n_sparse > 1:   # pbwtImpute.c:1136
         msg += f"(nSparse = {n_sparse}, fSparse = {f_sparse:.2f}) "
     log(msg)
-    if p_old is p_frame:
-        raise ValueError("the self-impute mode of referenceImpute3 "
-                         "(-imputeMissing) is not in the port; run it with "
-                         "python -m pbwt_tpu")
+    # self-impute (imputeMissing): the frame is the panel's complete sites,
+    # the targets its own haplotypes; complete entries copy straight
+    # through and only missing ones vote (pbwtImpute.c:1323-1371)
+    self_impute = p_old is p_frame
     lib = native.get_lib()
     T, Nref = p_old.M, p_ref.N
-    rows = _collect_matches(p_frame, p_old)
+    if self_impute:
+        seg_cols, rows = _within_segments(p_frame), None
+        cnts = np.diff(seg_cols[3])
+    else:
+        seg_cols, rows = None, _collect_matches(p_frame, p_old)
+        cnts = np.bincount(rows[:, 0], minlength=T)
     if registry.is_check:
-        cnts = np.bincount(rows[:, 0], minlength=T) + 1     # + the end marker
-        for j in range(T):
-            log(f"{int(cnts[j])} matches found to query {j}")
+        for j in range(T):                              # + the end marker
+            log(f"{int(cnts[j]) + 1} matches found to query {j}")
 
     p_new = PBWT(T, Nref)
     p_new.isRefFreq = True
     ref_sites = p_ref.sites
     kold_of_kref = _frame_coordinates(p_ref, p_frame)
-    use_device = device_requested()
+    use_device = not self_impute and device_requested()
     a_ref0 = (p_ref.aFstart if p_ref.aFstart is not None
               else np.arange(p_ref.M, dtype=np.int32))
 
@@ -231,15 +281,26 @@ def reference_impute3(p_old: PBWT, p_ref: PBWT, p_frame: PBWT,
         # sorted by (target, start) in C, as the per-target scans require
         # (the reference qsorts each target's list by start,
         # pbwtImpute.c:1150-1159)
-        jr_c, s_c, e_c, seg_off = native.segs_sort(rows, T)
+        if seg_cols is None:
+            seg_cols = native.segs_sort(rows, T)
+        jr_c, s_c, e_c, seg_off = seg_cols
+        missing = {}
+        if self_impute:
+            missing = dict(zmiss=p_ref.zMissing, miss_off=(
+                p_ref.missingOffset if p_ref.missingOffset is not None
+                else np.zeros(Nref, np.int64)))
         (p_new.yz, p_new.zDosage, dos_off, ref_freq, psums, xsums,
          pxsums, nvote, n_conflicts, a_end) = native.impute_vote_emit(
             p_ref.yz, p_ref.M, Nref, a_ref0, None, seg_off, T,
-            kold_of_kref, seg_cols=(jr_c, s_c, e_c))
+            kold_of_kref, seg_cols=(jr_c, s_c, e_c), **missing)
         p_new.aFend = a_end
         p_new.dosageOffset = dos_off
     else:
         # materialised paths: the device engine, or no native runtime
+        if seg_cols is not None:
+            jr_c, s_c, e_c, seg_off = seg_cols
+            rows = np.stack([np.repeat(np.arange(T), np.diff(seg_off)), jr_c,
+                             s_c, e_c], axis=1).astype(np.int64)
         segments = rows[np.lexsort((rows[:, 2], rows[:, 0]))]
         Xcols = Xref_nat = None
         if lib is not None and p_ref.yz:
@@ -260,7 +321,15 @@ def reference_impute3(p_old: PBWT, p_ref: PBWT, p_frame: PBWT,
             x_all, dos_all, voted = _vote_all_sites(
                 segments, T, Xref_nat, kold_of_kref, ref_freq)
         voted = voted.astype(bool, copy=False)
-        n_conflicts = int((~voted).sum())
+        if self_impute:
+            miss = _missing_mask(p_ref)
+            x_nat = Xref_nat if Xref_nat is not None else Xcols.T
+            n_conflicts = int((miss & ~voted).sum())
+            voted = voted & miss
+            x_all = np.where(miss, x_all, x_nat).astype(np.uint8)
+            dos_all = np.where(miss, dos_all, x_nat.astype(np.float64))
+        else:
+            n_conflicts = int((~voted).sum())
         nvote = voted.sum(axis=0)
         psums = np.where(voted, dos_all, 0.0).sum(axis=0)
         xsums = np.where(voted, x_all, 0).sum(axis=0).astype(np.float64)
@@ -324,4 +393,21 @@ def reference_impute(p_old: PBWT, root: str, n_sparse: int = 1,
     p_new.sites = p_ref.sites
     p_new.chrom = p_ref.chrom
     p_new.samples = p_old.samples
+    return p_new
+
+
+def impute_missing(p_old: PBWT) -> PBWT:
+    """imputeMissing (pbwtImpute.c:1323-1371): frame = complete-data sites."""
+    if p_old.missingOffset is None:
+        log("imputeMissing called but can't find missing data")
+        return p_old
+    complete = [p_old.sites[k] for k in range(p_old.N)
+                if not p_old.missingOffset[k]]
+    p_frame = p_old.select_sites(complete, keep_old=True)
+    p_frame.missingOffset = p_old.missingOffset  # unused for frame matching
+    # special mode of impute3: pOld == pFrame, pRef = the original panel
+    p_new = reference_impute3(p_frame, p_old, p_frame, 1, 0)
+    p_new.sites = p_old.sites
+    p_new.samples = p_old.samples
+    p_new.chrom = p_old.chrom
     return p_new

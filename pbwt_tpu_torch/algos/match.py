@@ -1,12 +1,15 @@
-"""Query-vs-panel matching: -matchIndexed and -matchDynamic, on the host
-and on the port's DeviceMatcher (pbwtMatch.c).
+"""Within-panel matching (-maxWithin, -longWithin) on the host, and
+query-vs-panel matching (-matchIndexed, -matchDynamic) on the host and on
+the port's DeviceMatcher (pbwtMatch.c).
 
-Counterpart of the query-vs-panel half of ``pbwt_tpu/algos/match.py``. The
-host paths are the numpy and C ones; the device routes take their place
-when :func:`pbwt_tpu_torch.ops.device_requested` says so and the panel has
-more than DEVICE_MIN_M haplotypes. Device rows come back in the matcher's
-(site, query) order and are re-sorted into each command's report order, so
-stdout is byte-identical to the host paths.
+Counterpart of ``pbwt_tpu/algos/match.py``. The within-panel matchers are
+the host's C scans, with numpy routes without the C runtime; painting and
+-imputeMissing collect their matches from them. For the query-vs-panel
+commands the host paths are the numpy and C ones; the device routes take
+their place when :func:`pbwt_tpu_torch.ops.device_requested` says so and
+the panel has more than DEVICE_MIN_M haplotypes. Device rows come back in
+the matcher's (site, query) order and are re-sorted into each command's
+report order, so stdout is byte-identical to the host paths.
 
 Report rows are printed as "MATCH\\tai\\tbi\\tstart\\tend\\tlen" exactly as
 reportMatch (pbwtMatch.c:46-58)."""
@@ -17,7 +20,7 @@ import sys
 
 import numpy as np
 
-from ..core import engine, native
+from ..core import engine, native, registry
 from ..core.pbwt import PBWT
 from ..io import pbwtfile
 from ..ops import device_requested
@@ -32,6 +35,251 @@ def report_match_stdout(ai: int, bi: int, start: int, end: int) -> None:
         return
     sys.stdout.write(f"MATCH\t{ai}\t{bi}\t{start}\t{end}\t{end - start}\n")
 
+
+def check_match_maximal(x: np.ndarray, y: np.ndarray, start: int, end: int, N: int):
+    """checkMatchMaximal (pbwtMatch.c:33-44)."""
+    if start and x[start - 1] == y[start - 1]:
+        raise AssertionError("match not maximal - can extend backwards")
+    if end < N and x[end] == y[end]:
+        raise AssertionError("match not maximal - can extend forwards")
+    if (x[start:end] != y[start:end]).any():
+        raise AssertionError("match not a match")
+
+
+# --------------------------------------------------------------------------
+# within-panel matching
+# --------------------------------------------------------------------------
+
+def _prev_greater(d: np.ndarray, M: int) -> np.ndarray:
+    """g[i] = max j <= i-1 with d[j] > d[i] (scan floor of the up-scan in
+    algorithm 4).  Only used for i >= 1; g[0] is set to 0 and never consulted
+    because d[0] is the strict-max sentinel so the up-scan never applies at
+    i == 0.  O(M) monotonic stack."""
+    g = np.zeros(M, dtype=np.int64)
+    dl = d.tolist()
+    stack = [0]
+    for i in range(1, M):
+        di = dl[i]
+        while dl[stack[-1]] <= di:
+            stack.pop()
+        g[i] = stack[-1]
+        stack.append(i)
+    return g
+
+
+def _next_greater(d: np.ndarray, M: int) -> np.ndarray:
+    """h[i] = min j > i+1 with d[j] > d[i+1] (scan ceiling of the down-scan
+    in algorithm 4; d[M] is the strict-max sentinel).  h[M-1] unused."""
+    h = np.empty(M, dtype=np.int64)
+    if M == 0:
+        return h
+    h[M - 1] = M
+    dl = d.tolist()
+    stack = [M]
+    for t in range(M - 1, 0, -1):
+        while dl[stack[-1]] <= dl[t]:
+            stack.pop()
+        h[t - 1] = stack[-1]
+        stack.append(t)
+    return h
+
+
+def match_maximal_within(p: PBWT, report) -> None:
+    """Algorithm 4 (matchMaximalWithin, pbwtMatch.c:115-142).
+
+    Native C fast path when available; otherwise per site the up/down
+    neighbour scans are resolved with vectorised previous/next-greater
+    bounds plus prefix allele counts.
+    """
+    a0 = p.aFstart if p.aFstart is not None else np.arange(p.M, dtype=np.int32)
+    # stream the pack3 bytes directly (O(M) live memory); fall back to the
+    # decoded matrix only when the packed stream is absent
+    rows = (native.max_within_packed(p.yz, p.M, p.N, a0) if p.yz
+            else native.max_within(p.decoded(True), a0))
+    if rows is not None:
+        for ai, bi, s, e in rows.tolist():
+            report(ai, bi, s, e)
+        return
+    Y = p.decoded(True)
+    M, N = p.M, p.N
+    a = (p.aFstart if p.aFstart is not None else np.arange(M, dtype=np.int32)).copy()
+    d = np.zeros(M + 1, dtype=np.int32)
+    d[0] = 1
+    d[M] = 1
+    y_end = np.zeros(M, dtype=np.uint8)   # y at k == N is undefined; block rule k<N applies
+    for k in range(N + 1):
+        y = Y[k] if k < N else y_end
+        dm = d
+        # bounds
+        g = _prev_greater(dm, M)           # scan range up: [g[i], i-1]
+        h = _next_greater(dm, M)           # scan range down: [i+1, h[i]-1]
+        # prefix counts of alleles for block-allele tests
+        c1 = np.zeros(M + 1, dtype=np.int64)
+        np.cumsum(y != 0, out=c1[1:])
+        c0 = np.arange(M + 1) - c1
+        up_applicable = dm[:M] <= dm[1:M + 1]
+        down_applicable = dm[:M] >= dm[1:M + 1]
+        for i in range(M):
+            lo = g[i]
+            hi = h[i]
+            yi = y[i]
+            if k < N:
+                if up_applicable[i] and i > lo:
+                    cnt = (c1[i] - c1[lo]) if yi else (c0[i] - c0[lo])
+                    if cnt > 0:
+                        continue
+                if down_applicable[i] and hi > i + 1:
+                    cnt = (c1[hi] - c1[i + 1]) if yi else (c0[hi] - c0[i + 1])
+                    if cnt > 0:
+                        continue
+            if up_applicable[i]:
+                for j in range(lo, i):
+                    report(int(a[i]), int(a[j]), int(dm[i]), k)
+            if down_applicable[i]:
+                for j in range(i + 1, hi):
+                    report(int(a[i]), int(a[j]), int(dm[i + 1]), k)
+        if k < N:
+            a, d = engine.forwards_ad(a, d, y, k)
+
+
+def match_long_within(p: PBWT, T: int, report) -> None:
+    """Algorithm 3 variant with starts (matchLongWithin2, pbwtMatch.c:85-113)."""
+    a0 = p.aFstart if p.aFstart is not None else np.arange(p.M, dtype=np.int32)
+    rows = (native.long_within_packed(p.yz, T, p.M, p.N, a0) if p.yz
+            else native.long_within(p.decoded(True), T, a0))
+    if rows is not None:
+        for ai, bi, s, e in rows.tolist():
+            report(ai, bi, s, e)
+        return
+    Y = p.decoded(True)
+    M, N = p.M, p.N
+    a = (p.aFstart if p.aFstart is not None else np.arange(M, dtype=np.int32)).copy()
+    d = np.zeros(M + 1, dtype=np.int32)
+    d[0] = 1
+    d[M] = 1
+    for k in range(N + 1):
+        # at k == N the reference cursor still holds the LAST column's values
+        # (the read past the end leaves y stale), and the final flush compares
+        # alleles against it (matchLongWithin2 has no k<N guard on y)
+        y = Y[min(k, N - 1)]
+        i0, na, nb = 0, 0, 0
+        for i in range(M):
+            if d[i] > k - T:
+                if na and nb:
+                    for ia in range(i0, i):
+                        dmin = 0
+                        for ib in range(ia + 1, i):
+                            if d[ib] > dmin:
+                                dmin = int(d[ib])
+                            if y[ib] != y[ia]:
+                                report(int(a[ia]), int(a[ib]), dmin, k)
+                na = nb = 0
+                i0 = i
+            if y[i] == 0:
+                na += 1
+            else:
+                nb += 1
+        if k < N:
+            a, d = engine.forwards_ad(a, d, y, k)
+
+
+def max_within_length_hist(p: PBWT) -> dict[int, int]:
+    """-stats mode of matchMaximalWithin (pbwtMatch.c:130-131): per unblocked
+    row one histogram entry of length k - d[i] (d[i] < d[i+1]) else
+    k - d[i+1]; reports are suppressed."""
+    Y = p.decoded(True)
+    M, N = p.M, p.N
+    a = (p.aFstart if p.aFstart is not None else np.arange(M, dtype=np.int32)).copy()
+    d = np.zeros(M + 1, dtype=np.int32)
+    d[0] = 1
+    d[M] = 1
+    hist: dict[int, int] = {}
+    for k in range(N + 1):
+        y = Y[k] if k < N else Y[N - 1]
+        dm = d
+        g = _prev_greater(dm, M)
+        h = _next_greater(dm, M)
+        c1 = np.zeros(M + 1, dtype=np.int64)
+        np.cumsum(y != 0, out=c1[1:])
+        c0 = np.arange(M + 1) - c1
+        up_applicable = dm[:M] <= dm[1:M + 1]
+        down_applicable = dm[:M] >= dm[1:M + 1]
+        for i in range(M):
+            yi = y[i]
+            if k < N:
+                if up_applicable[i] and i > g[i]:
+                    cnt = (c1[i] - c1[g[i]]) if yi else (c0[i] - c0[g[i]])
+                    if cnt > 0:
+                        continue
+                if down_applicable[i] and h[i] > i + 1:
+                    cnt = (c1[h[i]] - c1[i + 1]) if yi else (c0[h[i]] - c0[i + 1])
+                    if cnt > 0:
+                        continue
+            ln = k - int(dm[i]) if dm[i] < dm[i + 1] else k - int(dm[i + 1])
+            hist[ln] = hist.get(ln, 0) + 1
+        if k < N:
+            a, d = engine.forwards_ad(a, d, y, k)
+    return hist
+
+
+def long_matches(p: PBWT, L: int) -> None:
+    """pbwtLongMatches (pbwtMatch.c:148-183): CLI driver for -maxWithin /
+    -longWithin."""
+    if p is None or not p.yz:
+        raise ValueError("option -longWithin called without a PBWT")
+    if L < 0:
+        raise ValueError(f"L {L} for longWithin must be >= 0")
+
+    haps = p.haplotypes() if registry.is_check else None
+
+    def report(ai, bi, start, end):
+        if start == end:
+            return
+        sys.stdout.write(f"MATCH\t{ai}\t{bi}\t{start}\t{end}\t{end - start}\n")
+        if haps is not None:
+            check_match_maximal(haps[ai], haps[bi], start, end, p.N)
+
+    if registry.is_stats and not L:
+        hist = max_within_length_hist(p)
+        n_tot = sum(hist.values())
+        h_tot = sum(l * c for l, c in hist.items())
+        for l in sorted(hist):
+            if hist[l]:
+                sys.stdout.write(f"{l}\t{hist[l]}\n")
+        log(f"Average {n_tot / p.M:.1f} matches per sample")
+        log(f"Average length {h_tot / n_tot:.1f}")
+        return
+
+    if haps is None and p.yz:
+        # stream MATCH lines straight from the C scan to the stdout fd -
+        # no row materialisation (13M-row outputs take seconds, not
+        # minutes on slow-page-fault hosts)
+        a0 = (p.aFstart if p.aFstart is not None
+              else np.arange(p.M, dtype=np.int32))
+        sys.stdout.flush()
+        fd = native._stdout_fd(sys.stdout)
+        if fd >= 0:
+            n = (native.long_within_print(p.yz, L, p.M, p.N, a0, fd) if L
+                 else native.max_within_print(p.yz, p.M, p.N, a0, fd))
+            if n is not None:
+                return
+        binout = getattr(sys.stdout, "buffer", None)
+        if binout is not None:
+            rows = (native.long_within_packed(p.yz, L, p.M, p.N, a0) if L
+                    else native.max_within_packed(p.yz, p.M, p.N, a0))
+            if rows is not None and native.write_match_rows(rows, binout):
+                binout.flush()
+                return
+
+    if L:
+        match_long_within(p, L, report)
+    else:
+        match_maximal_within(p, report)
+
+
+# --------------------------------------------------------------------------
+# query-vs-panel matching
+# --------------------------------------------------------------------------
 
 def _use_device(p: PBWT) -> bool:
     return device_requested() and p.M > DEVICE_MIN_M

@@ -3,7 +3,8 @@ commands on one current PBWT, as ``pbwt_tpu/cli.py`` (pbwtMain.c:276-494),
 for the commands this port serves. The match commands take the device
 routes of :mod:`pbwt_tpu_torch.algos.match`, -llCopyModel that of
 :mod:`pbwt_tpu_torch.algos.likelihood`, -referenceImpute that of
-:mod:`pbwt_tpu_torch.algos.impute`, and the importers build on the device
+:mod:`pbwt_tpu_torch.algos.impute`, -paint that of
+:mod:`pbwt_tpu_torch.algos.paint`, and the importers build on the device
 engine; ``PBWT_TORCH_DEVICE`` decides (:mod:`pbwt_tpu_torch.ops`)."""
 
 from __future__ import annotations
@@ -30,20 +31,27 @@ Commands:
   -writeVcf|-writeVcfGz|-writeBcf|-writeBcfGz <file>  write VCF/BCF
   -matchIndexed <file>      maximal match seqs in pbwt file to reference
   -matchDynamic <file>      maximal match seqs in pbwt file to reference
+  -longWithin <L>           find matches within set longer than L
+  -maxWithin                find maximal matches within set
   -referenceImpute <root> [nSparse=1] [fSparse=1]  impute into reference
+  -imputeMissing            impute data marked as missing
   -fitAlphaBeta <model>     fit probabilistic model 1..3
   -llCopyModel <theta> <rho> log likelihood of Li-Stephens model
+  -paint <fileNameRoot> [n=100] [p=2] [l=0] painting co-ancestry matrix
+  -paintSparse <fileNameRoot> [n=100] [p=2] [t=0] sparse painting
 Every other command of pbwt is served by: python -m pbwt_tpu
 """
 
 # the commands of this port and the arguments each takes (-referenceImpute
-# takes two optional ones more)
+# takes two optional ones more, -paint and -paintSparse three)
 _NARGS = {"-check": 0, "-stats": 0, "-log": 1, "-read": 1, "-readAll": 1,
           "-readVcfGT": 1, "-readDosage": 1, "-write": 1, "-writeDosage": 1,
           "-writeAll": 1, "-haps": 1, "-writeGen": 1, "-writeVcf": 1,
           "-writeVcfGz": 1, "-writeBcf": 1, "-writeBcfGz": 1,
           "-matchIndexed": 1, "-matchDynamic": 1, "-referenceImpute": 1,
-          "-fitAlphaBeta": 1, "-llCopyModel": 2}
+          "-fitAlphaBeta": 1, "-llCopyModel": 2, "-maxWithin": 0,
+          "-longWithin": 1, "-imputeMissing": 0, "-paint": 1,
+          "-paintSparse": 1}
 _VCF_MODES = {"-writeVcf": "w", "-writeVcfGz": "wz", "-writeBcf": "wbu",
               "-writeBcfGz": "wb"}
 
@@ -85,7 +93,7 @@ def main(argv: list[str] | None = None) -> int:
 
 def _main(argv: list[str] | None) -> int:
     from . import utils
-    from .algos import impute, likelihood, match
+    from .algos import impute, likelihood, match, paint
     from .core import registry
     from .io import pbwtfile, textformats, vcf
 
@@ -162,6 +170,26 @@ def _main(argv: list[str] | None) -> int:
             q = pbwtfile.read_pbwt(fp)
             _close(fp, arg)
             match.match_sequences_indexed(p, q)
+        elif cmd == "-maxWithin":
+            match.long_matches(p, 0)
+        elif cmd == "-longWithin":
+            match.long_matches(p, int(arg))
+        elif cmd == "-imputeMissing":
+            p = impute.impute_missing(p)
+        elif cmd in ("-paint", "-paintSparse"):
+            # optional [chunksperregion] [ploidy] [outputlocal | cutoff]
+            opts = []
+            while (len(opts) < 3 and len(argv) > 2
+                   and not argv[2].startswith("-")):
+                opts.append(argv.pop(2))
+            npr = int(opts[0]) if opts else 100
+            ploidy = int(opts[1]) if len(opts) > 1 else 2
+            extra = float(opts[2]) if len(opts) > 2 else 0
+            if cmd == "-paint":
+                paint.paint_ancestry_matrix(p, arg, npr, ploidy, int(extra))
+            else:
+                paint.paint_ancestry_matrix_sparse(p, arg, npr, ploidy,
+                                                   extra)
         elif cmd == "-fitAlphaBeta":
             likelihood.fit_alpha_beta(p, int(arg))
         elif cmd == "-llCopyModel":

@@ -38,8 +38,10 @@ def _compile() -> bool:
     library."""
     global build_log
     tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [compiler(), "-O3", "-march=native", "-shared", "-fPIC",
-           "-o", tmp, _SRC]
+    # no contraction: each product and sum is rounded on its own, and the
+    # one fused multiply-add the painting entries want is written out
+    cmd = [compiler(), "-O3", "-march=native", "-ffp-contract=off",
+           "-shared", "-fPIC", "-o", tmp, _SRC, "-lm"]
     try:
         os.makedirs(os.path.dirname(_SO), exist_ok=True)
         res = subprocess.run(cmd, capture_output=True, timeout=300)
@@ -144,6 +146,39 @@ def _load():
                                      f64p, f64p, f64p, i64p, i64p]
     lib.segs_sort.restype = L
     lib.segs_sort.argtypes = [i64p, L, L, i32p, i32p, i32p, i64p]
+    lib.buckets_sort_start.restype = L
+    lib.buckets_sort_start.argtypes = [i32p, i32p, i32p, i64p, L]
+    lib.max_within.restype = L
+    lib.max_within.argtypes = [u8p, L, L, i32p, i64p, L]
+    lib.long_within.restype = L
+    lib.long_within.argtypes = [u8p, L, L, L, i32p, i64p, L]
+    lib.max_within_packed.restype = L
+    lib.max_within_packed.argtypes = [u8p, L, L, L, i32p, i64p, L]
+    lib.long_within_packed.restype = L
+    lib.long_within_packed.argtypes = [u8p, L, L, L, L, i32p, i64p, L]
+    lib.max_within_print.restype = L
+    lib.max_within_print.argtypes = [u8p, L, L, L, i32p, ctypes.c_int]
+    lib.long_within_print.restype = L
+    lib.long_within_print.argtypes = [u8p, L, L, L, L, i32p, ctypes.c_int]
+    lib.max_within_bucket_count.restype = L
+    lib.max_within_bucket_count.argtypes = [u8p, L, L, L, i32p, i64p]
+    lib.max_within_bucket_fill.restype = L
+    lib.max_within_bucket_fill.argtypes = [u8p, L, L, L, i32p, i32p, i32p,
+                                           i32p, i64p]
+    lib.bucket_rows.restype = None
+    lib.bucket_rows.argtypes = [i64p, L, L, i32p, i32p, i32p, i64p]
+    lib.paint_accumulate.restype = None
+    lib.paint_accumulate.argtypes = [i32p, i32p, i32p, i64p, L, L, L, L, L,
+                                     ctypes.c_double, f64p, f64p, f64p,
+                                     f64p, f64p, f64p]
+    lib.paint_sparse_ind.restype = None
+    lib.paint_sparse_ind.argtypes = [i32p, i32p, i32p, i64p, L, L, L, L, L,
+                                     L, ctypes.c_double, f64p, f64p, f64p,
+                                     f64p, f64p, f64p, f64p]
+    lib.format_f4_row.restype = L
+    lib.format_f4_row.argtypes = [f64p, L, ctypes.c_char_p]
+    lib.format_f4_rows.restype = L
+    lib.format_f4_rows.argtypes = [f64p, L, L, ctypes.c_char_p, i64p]
     _lib = lib
     return _lib
 
@@ -318,6 +353,173 @@ def segs_sort(rows: np.ndarray, T: int):
     if lib.segs_sort(rows.reshape(-1), n, T, jr, s, e, seg_off) < 0:
         raise MemoryError("segs_sort")
     return jr, s, e, seg_off
+
+
+def buckets_sort_start(sj: np.ndarray, ss: np.ndarray, se: np.ndarray,
+                       seg_off: np.ndarray) -> bool:
+    """Sort already-bucketed (donor, start, end) runs by start, in place
+    (one C pass).  Returns False when the native library is missing."""
+    lib = get_lib()
+    if lib is None:
+        return False
+    T = len(seg_off) - 1
+    if lib.buckets_sort_start(sj, ss, se,
+                              np.ascontiguousarray(seg_off, np.int64),
+                              T) < 0:
+        raise MemoryError("buckets_sort_start")
+    return True
+
+
+def max_within(Ysort: np.ndarray, a0: np.ndarray):
+    """All set-maximal within-panel match reports as an (n, 4) int64 array
+    in reference scan order, or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    N, M = Ysort.shape
+    Ysort = np.ascontiguousarray(Ysort, np.uint8)
+    a0 = np.ascontiguousarray(a0, np.int32)
+    cap = max(4096, 8 * M)
+    while True:
+        out = np.empty((cap, 4), np.int64)
+        n = lib.max_within(Ysort.reshape(-1), M, N, a0, out.reshape(-1), cap)
+        if n <= cap:
+            return out[:n]
+        cap = n
+
+
+def long_within(Ysort: np.ndarray, T: int, a0: np.ndarray):
+    """Long-match (> T) reports as an (n, 4) int64 array in reference scan
+    order, or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    N, M = Ysort.shape
+    Ysort = np.ascontiguousarray(Ysort, np.uint8)
+    a0 = np.ascontiguousarray(a0, np.int32)
+    cap = max(4096, 8 * M)
+    while True:
+        out = np.empty((cap, 4), np.int64)
+        n = lib.long_within(Ysort.reshape(-1), M, N, T, a0,
+                            out.reshape(-1), cap)
+        if n <= cap:
+            return out[:n]
+        cap = n
+
+
+def max_within_bucketed(yz: bytes, M: int, N: int, a0: np.ndarray):
+    """Two-pass maxWithin straight into per-recipient buckets: returns
+    (seg_j, seg_s, seg_e, seg_off) in the reference's per-recipient report
+    order without ever holding the (n, 4) int64 row set - peak memory is
+    3n int32 (the painting consumers' own layout) at the cost of a second
+    streaming pass over the pack3 bytes.  None when the library is
+    unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    z = np.frombuffer(yz, np.uint8)
+    a0 = np.ascontiguousarray(a0, np.int32)
+    off = np.zeros(M + 1, np.int64)
+    n = lib.max_within_bucket_count(z, len(z), M, N, a0, off)
+    if n < 0:
+        return None
+    sj = pooled_view((max(n, 1),), np.int32, "paint:sj")
+    ss = pooled_view((max(n, 1),), np.int32, "paint:ss")
+    se = pooled_view((max(n, 1),), np.int32, "paint:se")
+    n2 = lib.max_within_bucket_fill(z, len(z), M, N, a0, sj, ss, se, off)
+    if n2 != n:
+        return None
+    return sj[:n], ss[:n], se[:n], off
+
+
+def max_within_packed(yz: bytes, M: int, N: int, a0: np.ndarray):
+    """max_within streaming the pack3 bytes directly (O(M) live memory,
+    like the reference cursor model); (n, 4) int64 rows or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    z = np.frombuffer(yz, np.uint8)
+    a0 = np.ascontiguousarray(a0, np.int32)
+    cap = max(4096, 8 * M)
+    while True:
+        out = pooled_view((cap, 4), np.int64, "rows:max_within")
+        n = lib.max_within_packed(z, len(z), M, N, a0, out.reshape(-1), cap)
+        if n < 0:
+            return None
+        if n <= cap:
+            return out[:n]
+        cap = n
+
+
+def long_within_packed(yz: bytes, T: int, M: int, N: int, a0: np.ndarray):
+    """long_within streaming the pack3 bytes; (n, 4) int64 rows or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    z = np.frombuffer(yz, np.uint8)
+    a0 = np.ascontiguousarray(a0, np.int32)
+    cap = max(4096, 8 * M)
+    while True:
+        out = pooled_view((cap, 4), np.int64, "rows:long_within")
+        n = lib.long_within_packed(z, len(z), M, N, T, a0,
+                                   out.reshape(-1), cap)
+        if n < 0:
+            return None
+        if n <= cap:
+            return out[:n]
+        cap = n
+
+
+def max_within_print(yz: bytes, M: int, N: int, a0: np.ndarray, fd: int):
+    """Stream MATCH lines for all set-maximal matches straight to fd
+    (never materialising the row set); returns report count or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    z = np.frombuffer(yz, np.uint8)
+    a0 = np.ascontiguousarray(a0, np.int32)
+    n = lib.max_within_print(z, len(z), M, N, a0, fd)
+    return None if n < 0 else n
+
+
+def long_within_print(yz: bytes, T: int, M: int, N: int, a0: np.ndarray,
+                      fd: int):
+    lib = get_lib()
+    if lib is None:
+        return None
+    z = np.frombuffer(yz, np.uint8)
+    a0 = np.ascontiguousarray(a0, np.int32)
+    n = lib.long_within_print(z, len(z), M, N, T, a0, fd)
+    return None if n < 0 else n
+
+
+def format_f4_row(vals: np.ndarray):
+    """One table row as ' %.4f' per value (glibc printf semantics, like
+    the reference's fprintf loops), or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    vals = np.ascontiguousarray(vals, np.float64)
+    buf = ctypes.create_string_buffer(16 * len(vals) + 16)
+    n = lib.format_f4_row(vals, len(vals), buf)
+    return buf.raw[:n].decode()
+
+
+def format_f4_rows(table: np.ndarray):
+    """Whole (R, C) table as per-row ' %.4f' strings in ONE native call
+    (the per-row ctypes overhead dominated -paint's emitters).  Returns a
+    list of R strings, or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    table = np.ascontiguousarray(table, np.float64)
+    R, C = table.shape
+    buf = pooled(16 * R * C + 16, "fmt_f4_rows")
+    offs = np.empty(R + 1, np.int64)
+    lib.format_f4_rows(table.reshape(-1), R, C,
+                       buf.ctypes.data_as(ctypes.c_char_p), offs)
+    raw = bytes(buf[:offs[R]])
+    return [raw[offs[r]:offs[r + 1]].decode() for r in range(R)]
 
 
 def impute_vote_emit(yzref: bytes, Mref: int, Nref: int, a_ref0: np.ndarray,

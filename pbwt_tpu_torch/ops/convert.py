@@ -52,3 +52,15 @@ def trajectory_from_jax(a_end, A_pre, D8, U8, C):
     A = np.concatenate([np.asarray(A_pre), np.asarray(a_end)[None]])
     return (A.astype(np.int32), digit_planes_to_int(D8),
             digit_planes_to_int(U8), np.asarray(C).astype(np.int32))
+
+
+def paint_segments_from_jax(segments: np.ndarray, n_recipients: int):
+    """``pbwt_tpu.ops.paint_jax``'s (nseg, 4) rows (recipient haplotype,
+    donor, start, end) -> the columns K6 takes: (seg_off (M+1,) int64, sj,
+    ss, se int32), each recipient's rows in their given (report) order."""
+    segs = np.asarray(segments, np.int64).reshape(-1, 4)
+    segs = segs[np.argsort(segs[:, 0], kind="stable")]
+    off = np.zeros(n_recipients + 1, np.int64)
+    np.cumsum(np.bincount(segs[:, 0], minlength=n_recipients), out=off[1:])
+    return (off, *(np.ascontiguousarray(segs[:, c], np.int32)
+                   for c in (1, 2, 3)))

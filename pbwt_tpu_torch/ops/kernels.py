@@ -44,6 +44,8 @@ _SIGNATURES = {
     "k4_ls_step": [_I, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P],
     "k4_ls_eval": [_I, _P, _L, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P],
     "k5_impute_vote": [_I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
+    "k6_paint_accumulate": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                            _P, _P, _P],
 }
 
 # kernel name -> number of wrapper calls that launched it

@@ -145,11 +145,11 @@ def test_cli_host_route_imports_no_torch(files):
 
 def test_cli_refuses_other_commands(files):
     p, _ = files
-    res = _run([sys.executable, "-c", RUN_PORT, "-read", p, "-maxWithin"],
+    res = _run([sys.executable, "-c", RUN_PORT, "-read", p, "-4hapsStats"],
                {})
     assert res.returncode != 0
     last = res.stderr.decode().strip().splitlines()[-1]
-    assert "-maxWithin" in last and "python -m pbwt_tpu" in last
+    assert "-4hapsStats" in last and "python -m pbwt_tpu" in last
 
 
 @pytest.fixture(scope="module")

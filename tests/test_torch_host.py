@@ -187,6 +187,25 @@ def _native_case(name, native):
         return native.sweep_match_packed(yz, 300, yzq, 20, 50, a0, aq0).copy()
     if name in ("segs_sort", "impute_vote_emit", "impute_emit"):
         return _impute_case(name, native, X, yz, a0)
+    if name in ("max_within", "long_within"):
+        return (native.max_within(Y, a0) if name == "max_within"
+                else native.long_within(Y, 6, a0)).copy()
+    if name in ("max_within_packed", "long_within_packed"):
+        return (native.max_within_packed(yz, 300, 50, a0)
+                if name == "max_within_packed"
+                else native.long_within_packed(yz, 6, 300, 50, a0)).copy()
+    if name in ("max_within_bucketed", "buckets_sort_start"):
+        cols = tuple(c.copy() for c in native.max_within_bucketed(
+            yz, 300, 50, a0))
+        if name == "buckets_sort_start":
+            assert native.buckets_sort_start(*cols)
+        return cols
+    if name == "format_f4_rows":
+        v = np.random.RandomState(10).random_sample((7, 30)) * 10 ** (
+            np.arange(30) % 8)
+        v[0, :4] = (0.0, 0.00005, 1.23455, 2.5e15)    # ties, the slow path
+        v[1, :2] = (-0.5, -1e-9)
+        return tuple(native.format_f4_rows(v)) + (native.format_f4_row(v[0]),)
     assert name == "write_match_rows"
     rows = np.random.RandomState(9).randint(0, 10**6, size=(500, 4))
     rows[::7, 3] = rows[::7, 2]               # empty matches are not printed
@@ -227,7 +246,11 @@ def _impute_case(name, native, X, yz, a0):
                                   "col_counts", "build_pbwt_chunk",
                                   "pack_advance", "select_repack",
                                   "subsample_repack", "build_reverse_core",
-                                  "sweep_match", "sweep_match_packed"])
+                                  "sweep_match", "sweep_match_packed",
+                                  "max_within", "long_within",
+                                  "max_within_packed", "long_within_packed",
+                                  "max_within_bucketed",
+                                  "buckets_sort_start", "format_f4_rows"])
 def test_native_entries(name):
     assert port_native.get_lib() is not None, "the C runtime did not build"
     got, want = _native_case(name, port_native), _native_case(name, ref_native)

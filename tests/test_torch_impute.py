@@ -183,10 +183,19 @@ def test_reference_impute3_matches_jax_package(monkeypatch, route, seed, Mref,
 
 
 def test_self_impute_is_refused():
+    """impute_missing refuses a panel without missing data as the JAX
+    package does: the same panel back and the same log line."""
     Xref, Xq, frame_idx = problem(1, 20, 4, 40)
-    _, p_ref, p_frame = panels(port_pbwt, port_registry, Xref, Xq, frame_idx)
-    with pytest.raises(ValueError, match="python -m pbwt_tpu"):
-        port_impute.reference_impute3(p_frame, p_ref, p_frame)
+    logs = []
+    for pbwt_mod, registry, utils, impute in (
+            (port_pbwt, port_registry, port_utils, port_impute),
+            (ref_pbwt, ref_registry, ref_utils, ref_impute)):
+        _, p_ref, _ = panels(pbwt_mod, registry, Xref, Xq, frame_idx)
+        log = io.StringIO()
+        utils.set_log_file(log)
+        assert impute.impute_missing(p_ref) is p_ref
+        logs.append(log.getvalue())
+    assert logs[0] == logs[1] and "can't find missing data" in logs[0]
 
 
 @pytest.mark.parametrize("seed", [0, 1])
