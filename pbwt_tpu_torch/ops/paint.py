@@ -57,7 +57,7 @@ def _windows(seg_off, ss, se, N: int):
     return rec, pos, last, k0, k1, t0
 
 
-def _pair_counts(rec, last, k0, k1, t0, other, N: int):
+def _pair_counts(last, k0, k1, t0, other, N: int):
     """(sites live, tail sites) of each segment whose donor is another
     individual."""
     live = torch.where(other, (k1 - k0).clamp(min=0), 0)
@@ -70,7 +70,7 @@ def covering_pairs(seg_off, sj, ss, se, N: int, ploidy: int) -> int:
     individual in its recipient's window at a site."""
     rec, _, last, k0, k1, t0 = _windows(seg_off, ss, se, N)
     other = sj.long() // ploidy != rec // ploidy
-    live, tail = _pair_counts(rec, last, k0, k1, t0, other, N)
+    live, tail = _pair_counts(last, k0, k1, t0, other, N)
     return int((live + tail).sum())
 
 
@@ -100,7 +100,7 @@ def paint_accumulate_plain(seg_off, sj, ss, se, M: int, N: int, ploidy: int,
     s, e = ss.long(), se.long()
     ind = sj.long() // ploidy
     me = rec // ploidy
-    live, tail = _pair_counts(rec, last, k0, k1, t0, ind != me, N)
+    live, tail = _pair_counts(last, k0, k1, t0, ind != me, N)
     npairs = live + tail
     # a region closes at the site of every cpr-th advance of the window
     close = (((pos + 1) % cpr) == 0) & ~last & (e.clamp(min=1) <= N - 1)
@@ -216,7 +216,10 @@ def paint_tables_device(sj, ss, se, seg_off, M: int, N: int, ploidy: int,
     n_inds = M // ploidy
     if dev.type == "cuda":
         need = 8 * (4 * n_inds * n_inds + n_inds) + 12 * len(sj) + 8 * (M + 1)
-        free = torch.cuda.mem_get_info(dev)[0]
+        # the driver's free memory and what torch's cache holds unused
+        free = (torch.cuda.mem_get_info(dev)[0]
+                + torch.cuda.memory_reserved(dev)
+                - torch.cuda.memory_allocated(dev))
         if need > free:
             raise ValueError(f"-paint's tables need {need} bytes of device "
                              f"memory and {free} are free: use -paintSparse, "
