@@ -54,6 +54,7 @@
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstdint>
 
 namespace {
 
@@ -62,7 +63,9 @@ constexpr unsigned GROUP = 0xffffffffu;  // their mask
 constexpr int K3_THREADS = 64;           // threads a block of the scan
 constexpr int PLANE_WORDS = 4;  // int32 words a block of the plane: one int4
 constexpr int PLANE_ROWS = 32 * (PLANE_WORDS - 1);
-constexpr int PLANE_THREADS = 256;
+constexpr int PLANE_WARPS = 4;                 // warps a block of k3_plane
+constexpr int PLANE_SPAN = 32 * PLANE_ROWS;    // rows a warp: a block a lane
+constexpr int PLANE_LOADS = PLANE_SPAN / 128;  // 16-byte loads a lane (24)
 
 // Row-packed words hold site j at bit 8*((j>>3)&3) + 7-(j&7) of word j>>5
 // (numpy packbits bytes read as little-endian int32); this puts site j of the
@@ -220,32 +223,64 @@ k3_scan(const int* __restrict__ plane, size_t plane_stride, const int* __restric
   }
 }
 
-// One warp a word of 32 rows: bit i of site k is U[k][i + 1] - U[k][i], with
-// C[k] closing the last row; rows at and beyond mp read as C[k] and give no
-// bit, so the block that holds position mp ranks it C[k].
-__global__ void __launch_bounds__(PLANE_THREADS)
-k3_plane(const int* __restrict__ U, const int* __restrict__ C, int ns, int mp, int nblk,
+// Rows i .. i + 3 of a site's ranks (i a multiple of 4); rows at and beyond
+// mp read as c. vec: the rows are 16-byte aligned, so four are one load.
+__device__ __forceinline__ int4 plane_rows(const int* __restrict__ u, int i, int mp, int c,
+                                           bool vec) {
+  if (vec && i < mp) return __ldg(reinterpret_cast<const int4*>(u + i));
+  int4 r;
+  r.x = i < mp ? __ldg(u + i) : c;
+  r.y = i + 1 < mp ? __ldg(u + i + 1) : c;
+  r.z = i + 2 < mp ? __ldg(u + i + 2) : c;
+  r.w = i + 3 < mp ? __ldg(u + i + 3) : c;
+  return r;
+}
+
+// A warp makes 32 consecutive blocks of a site's plane (3,072 rows, 12 KB of
+// U): each lane issues its 24 loads of 16 bytes before any of them is used,
+// so an SM has a few hundred KB in flight. Bit i of the site is
+// U[k][i + 1] != U[k][i], its neighbour taken from the next lane's load (from
+// the next load's first lane at lane 31, and from the row after the span at
+// the span's end); rows at and beyond mp read as C[k] and give no bit, so the
+// block that holds position mp ranks it C[k]. Eight lanes' nibbles make a
+// word; words and each load's first rank go through shared memory so that
+// lane b writes block b as one int4, and a warp's stores are whole sectors.
+__global__ void __launch_bounds__(32 * PLANE_WARPS)
+k3_plane(const int* __restrict__ U, const int* __restrict__ C, int mp, int nblk, bool vec,
          int* __restrict__ plane) {
-  const int lane = threadIdx.x & 31;
-  const int warps = PLANE_THREADS / 32;
-  const int words = nblk * (PLANE_WORDS - 1);  // bit words a site
-  const long long total = (long long)ns * words;
-  for (long long wid = (long long)blockIdx.x * warps + (threadIdx.x >> 5); wid < total;
-       wid += (long long)gridDim.x * warps) {
-    int k = (int)(wid / words), j = (int)(wid - (long long)k * words);
-    const int* u = U + (size_t)k * mp;
-    int c = __ldg(C + k);
-    int i = 32 * j + lane;
-    int v = i < mp ? u[i] : c;
-    int nxt = __shfl_down_sync(0xffffffffu, v, 1);
-    if (lane == 31) nxt = i + 1 < mp ? u[i + 1] : c;
-    unsigned bits = __ballot_sync(0xffffffffu, nxt != v);
-    if (lane == 0) {
-      int b = j / (PLANE_WORDS - 1), m = j - b * (PLANE_WORDS - 1);
-      int* o = plane + ((size_t)k * nblk + b) * PLANE_WORDS;
-      o[1 + m] = (int)bits;
-      if (m == 0) o[0] = v;  // the rank at the block's start
-    }
+  __shared__ int first[PLANE_WARPS][32 * PLANE_LOADS];  // U at the span's rows 4i
+  __shared__ unsigned bits[PLANE_WARPS][PLANE_SPAN / 32];
+  const unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b0 = (blockIdx.y * PLANE_WARPS + warp) * 32;  // the warp's first block
+  if (b0 >= nblk) return;
+  const int k = blockIdx.x, base = b0 * PLANE_ROWS;
+  const int* u = U + (size_t)k * mp;
+  const int c = __ldg(C + k);
+  int4 v[PLANE_LOADS];
+#pragma unroll
+  for (int n = 0; n < PLANE_LOADS; ++n) v[n] = plane_rows(u, base + 128 * n + 4 * lane, mp, c, vec);
+  const int after = base + PLANE_SPAN < mp ? __ldg(u + base + PLANE_SPAN) : c;
+#pragma unroll
+  for (int n = 0; n < PLANE_LOADS; ++n) {
+    const int head = __shfl_sync(FULL, n + 1 < PLANE_LOADS ? v[n + 1].x : after, 0);
+    int nx = __shfl_down_sync(FULL, v[n].x, 1);
+    if (lane == 31) nx = head;
+    const unsigned nib = (unsigned)(v[n].y != v[n].x) | (unsigned)(v[n].z != v[n].y) << 1 |
+                         (unsigned)(v[n].w != v[n].z) << 2 | (unsigned)(nx != v[n].w) << 3;
+    unsigned word = nib << (4 * (lane & 7));
+    word |= __shfl_xor_sync(FULL, word, 1);
+    word |= __shfl_xor_sync(FULL, word, 2);
+    word |= __shfl_xor_sync(FULL, word, 4);
+    if ((lane & 7) == 0) bits[warp][4 * n + (lane >> 3)] = word;
+    first[warp][32 * n + lane] = v[n].x;
+  }
+  __syncwarp();
+  const int b = b0 + lane;
+  if (b < nblk) {
+    const int4 o = make_int4(first[warp][PLANE_ROWS / 4 * lane], (int)bits[warp][3 * lane],
+                             (int)bits[warp][3 * lane + 1], (int)bits[warp][3 * lane + 2]);
+    reinterpret_cast<int4*>(plane)[(size_t)k * nblk + b] = o;
   }
 }
 
@@ -263,16 +298,13 @@ int k3_plane_layout(int which) { return which == 1 ? PLANE_WORDS : 0; }
 int k3_rank_plane(int device, const int* U, const int* C, int ns, int mp, int* plane,
                   void* stream) {
   if (ns <= 0) return 0;
+  if (mp < 0 || (reinterpret_cast<uintptr_t>(plane) & 15)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  int nblk = mp / PLANE_ROWS + 1;
-  long long total = (long long)ns * nblk * (PLANE_WORDS - 1), warps = PLANE_THREADS / 32;
-  long long want = (total + warps - 1) / warps;
-  int nb = (int)(want < 16LL * sms ? want : 16LL * sms);
-  k3_plane<<<nb, PLANE_THREADS, 0, (cudaStream_t)stream>>>(U, C, ns, mp, nblk, plane);
+  const int nblk = mp / PLANE_ROWS + 1;
+  const bool vec = (mp & 3) == 0 && (reinterpret_cast<uintptr_t>(U) & 15) == 0;
+  const dim3 grid(ns, (nblk + 32 * PLANE_WARPS - 1) / (32 * PLANE_WARPS));
+  k3_plane<<<grid, 32 * PLANE_WARPS, 0, (cudaStream_t)stream>>>(U, C, mp, nblk, vec, plane);
   return (int)cudaGetLastError();
 }
 

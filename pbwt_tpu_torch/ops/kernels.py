@@ -44,8 +44,8 @@ _SIGNATURES = {
     "k4_ls_step": [_I, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P],
     "k4_ls_eval": [_I, _P, _L, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P],
     "k5_impute_vote": [_I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
-    "k6_paint_accumulate": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                            _P, _P, _P],
+    "k6_paint_accumulate": [_I, _I, _I, _I, _P, _P, _L, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 # kernel name -> number of wrapper calls that launched it
@@ -159,6 +159,10 @@ def launch(name: str, *args) -> None:
     """Call kernel entry ``name`` and count the launch; raises on a CUDA
     error code."""
     fn = getattr(library(), name)
+    if len(args) != len(_SIGNATURES[name]):
+        # ctypes would pass the surplus with its default conversion, an int
+        raise TypeError(f"pbwt_tpu_torch: {name} takes "
+                        f"{len(_SIGNATURES[name])} arguments, not {len(args)}")
     LAUNCHES[name] += 1
     err = fn(*args)
     if err != 0:

@@ -8,11 +8,18 @@ so do the running region sums, whose squares and sums are added at every
 chunksperregion-th advance of the window (paintAncestryMatrix,
 pbwtPaint.c:56-209; the loop of native ``paint_accumulate``). The JAX pass
 takes the sums in f32 over (nseg, chunk) grids and rebuilds the region tables
-from prefix sums; kernel ``k6_paint_accumulate`` walks each recipient's sites
-in the host's order in f64, so the tables are the host C pass's to the bit.
+from prefix sums. Kernel ``k6_paint_accumulate`` keeps the host's f64 order
+cell by cell: :func:`prepare` turns the segments into the intervals of sites
+each one is weighed at, bucketed by table cell (recipient individual, donor
+individual), and the region closes of each haplotype; the kernel's first
+phase sums the normalisers exactly, its second walks every cell's additions
+in the host's order, a thread a cell, so the tables are the host C pass's to
+the bit.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -21,9 +28,6 @@ from . import kernels, resolve_device
 from .partition import _segmented_cummax
 
 TWIN_ELEMENTS = 1 << 24     # (segment, site) pairs a step of the plain twin
-# shared memory a block may have on the H100: K6 keeps a haplotype's open
-# region there, 8 B a donor individual
-MAX_SHARED = 232_448
 
 
 def _windows(seg_off, ss, se, N: int):
@@ -160,6 +164,111 @@ def paint_accumulate_plain(seg_off, sj, ss, se, M: int, N: int, ploidy: int,
     return counts, totlengths, counts2, counts3, nregions
 
 
+class Prepared(NamedTuple):
+    """K6's inputs (:func:`prepare`). An interval is a segment of another
+    individual and the sites [a, b) at which it is in its recipient's window:
+    while it is live and, for the last of its haplotype, on to N (the window
+    then rests on it)."""
+    hap_off: torch.Tensor     # (M + 1,) int64: each haplotype's intervals
+    hap_iv: torch.Tensor      # (niv, 4) int32: a, b, start, end
+    sched: torch.Tensor       # (ncells,) int32: the cells, longest first
+    cell_off: torch.Tensor    # (ncells + 1,) int64: each cell's intervals
+    cell_key: torch.Tensor    # (ncells,) int64: recipient * n_inds + donor
+    cell_iv: torch.Tensor     # (niv, 4) int32: hap_iv in cell order
+    cell_hap: torch.Tensor    # (niv,) int32: their haplotypes
+    close_off: torch.Tensor   # (M + 1,) int64: each haplotype's closes
+    close_site: torch.Tensor  # (ncloses,) int32: the sites, ascending
+    nregions: torch.Tensor    # (n_inds,) f64: closes an individual
+
+
+def _offsets(owner: torch.Tensor, n: int) -> torch.Tensor:
+    """(n + 1,) int64 offsets of the runs of owner, ascending, in [0, n)."""
+    return torch.searchsorted(owner, torch.arange(n + 1, device=owner.device))
+
+
+def prepare(seg_off, sj, ss, se, M: int, N: int, ploidy: int,
+            cpr: int) -> Prepared:
+    """The intervals, cells and region closes of K6, by index arithmetic
+    alone (no f64 sum or quotient is taken here).
+
+    A haplotype's intervals keep the segment order, so their ends b do not
+    decrease, and the intervals in the window at a site are a run of them.
+    A stable sort by cell keeps each cell's intervals in (haplotype,
+    segment) order: the order in which the host adds into that cell. A region closes at site max(end, 1) of every
+    cpr-th segment but a haplotype's last, if that site is below N: there
+    the host's window passes it, and the open region is flushed before the
+    site's additions. The cells are scheduled by the power of two of their
+    weighed pairs, largest first, then in key order."""
+    if M % ploidy:
+        raise ValueError(f"paint_accumulate: {M} haplotypes are not whole "
+                         f"individuals of ploidy {ploidy}")
+    dev = sj.device
+    n_inds = M // ploidy
+    i32 = torch.int32
+    rec, pos, last, k0, k1, t0 = _windows(seg_off, ss, se, N)
+    e = se.long()
+    ind = sj.long() // ploidy
+    other = ind != rec // ploidy
+    # a live interval needs end >= start + 2, and then its tail (the last
+    # segment's) starts at t0 = end = k1: the two make one interval
+    live = other & (k0 < k1)
+    tail = other & last & (t0 < N)
+    sid = torch.nonzero(live | tail).squeeze(1)
+    a = torch.where(live, k0, t0)[sid]
+    b = torch.where(tail, N, k1)[sid]
+    hap, donor = rec[sid], ind[sid]
+    # an interval's four fields are one 16-byte element: one load in K6,
+    # and one gather into cell order
+    iv = torch.stack([a.to(i32), b.to(i32), ss[sid], se[sid]], 1)
+
+    key = hap // ploidy * n_inds + donor
+    if n_inds * n_inds < 1 << 31:       # a radix sort of half the passes
+        key = key.to(i32)
+    key, perm = torch.sort(key, stable=True)
+    cell_key, count = torch.unique_consecutive(key, return_counts=True)
+    cell_off = torch.zeros(count.numel() + 1, dtype=torch.long, device=dev)
+    cell_off[1:] = torch.cumsum(count, 0)
+    done = torch.zeros(sid.numel() + 1, dtype=torch.long, device=dev)
+    done[1:] = torch.cumsum((b - a)[perm], 0)
+    pairs = done[cell_off[1:]] - done[cell_off[:-1]]
+    powers = torch.ones(62, dtype=torch.long, device=dev) << torch.arange(
+        1, 63, device=dev)
+    bucket = torch.bucketize(pairs, powers, right=True).to(i32)
+    sched = torch.sort(-bucket, stable=True).indices.to(i32)
+
+    shut = torch.nonzero((((pos + 1) % cpr) == 0) & ~last
+                         & (e.clamp(min=1) <= N - 1)).squeeze(1)
+    close_off = _offsets(rec[shut], M)
+    ncl = close_off[1:] - close_off[:-1]
+    return Prepared(
+        _offsets(hap, M), iv, sched, cell_off, cell_key.long(),
+        iv.view(torch.complex128)[perm].view(i32).view(-1, 4),
+        hap[perm].to(i32), close_off,
+        e[shut].clamp(min=1).to(i32),
+        ncl.view(n_inds, ploidy).sum(1).to(torch.float64))
+
+
+def device_bytes(M: int, N: int, ploidy: int, nseg: int) -> int:
+    """Device memory :func:`paint_tables_device` takes at most: the
+    tables, the segments, the normalisers (8 B a haplotype a site), the
+    intervals and cells of :class:`Prepared` (at most nseg + M intervals,
+    56 B each with their cells) and the int64 columns :func:`prepare` makes
+    on the way (16 an interval)."""
+    n_inds, niv = M // ploidy, nseg + M
+    return (8 * (4 * n_inds * n_inds + n_inds) + 12 * nseg + 8 * (M + 1)
+            + 8 * M * N + 56 * niv + 4 * nseg + 16 * (M + 1) + 128 * niv)
+
+
+def k6_arguments(dev, M: int, N: int, prep: Prepared, ssum, tables,
+                 phases: int = 3) -> tuple:
+    """The arguments of the C entry k6_paint_accumulate: phases 1 (the
+    normalisers into ssum), 2 (the cells into the tables) or 3 (both)."""
+    ptr = [t.data_ptr() for t in prep[:-1]]
+    return (dev.index, M, N, phases, ptr[0], ptr[1], prep.sched.numel(),
+            *ptr[2:], ssum.data_ptr(),
+            *(t.data_ptr() for t in tables), kernels.stream(dev))
+
+
 def paint_accumulate(seg_off, sj, ss, se, M: int, N: int, ploidy: int,
                      cpr: int):
     """The co-ancestry tables of painting (kernel K6).
@@ -172,28 +281,29 @@ def paint_accumulate(seg_off, sj, ss, se, M: int, N: int, ploidy: int,
     nregions (n_inds,) float64, n_inds = M // ploidy: what native
     ``paint_accumulate`` writes with no length cutoff, before the lengths
     are normalised.
+
+    On the card, :func:`prepare` makes the intervals, cells and closes;
+    one call of the kernel entry sums the normalisers of every (haplotype,
+    site) into an (M, N) f64 scratch and then walks the cells, a thread a
+    cell, each storing its four sums once (cells without a weighed pair
+    stay 0).
     """
     if sj.device.type == "cpu":
         return paint_accumulate_plain(seg_off, sj, ss, se, M, N, ploidy, cpr)
-    i32, f64 = torch.int32, torch.float64
-    dev = kernels.typed_cuda_tensors((seg_off, torch.int64), (sj, i32),
-                                     (ss, i32), (se, i32))
+    f64 = torch.float64
+    dev = kernels.typed_cuda_tensors((seg_off, torch.int64), (sj, torch.int32),
+                                     (ss, torch.int32), (se, torch.int32))
     if (seg_off.numel() != M + 1 or ss.numel() != sj.numel()
             or se.numel() != sj.numel() or cpr < 1 or ploidy < 1):
         raise ValueError("paint_accumulate: inconsistent shapes")
     n_inds = M // ploidy
-    if 8 * n_inds > MAX_SHARED:
-        raise ValueError(f"-paint on the device takes at most "
-                         f"{MAX_SHARED // 8} individuals, not {n_inds}: use "
-                         "-paintSparse, or the host (PBWT_TORCH_DEVICE=0)")
+    prep = prepare(seg_off, sj, ss, se, M, N, ploidy, cpr)
+    ssum = torch.empty((M, N), dtype=f64, device=dev)
     tables = [torch.zeros((n_inds, n_inds), dtype=f64, device=dev)
               for _ in range(4)]
-    nregions = torch.zeros(n_inds, dtype=f64, device=dev)
-    kernels.launch("k6_paint_accumulate", dev.index, seg_off.data_ptr(),
-                   sj.data_ptr(), ss.data_ptr(), se.data_ptr(), M, N, ploidy,
-                   cpr, *(t.data_ptr() for t in tables), nregions.data_ptr(),
-                   kernels.stream(dev))
-    return (*tables, nregions)
+    kernels.launch("k6_paint_accumulate",
+                   *k6_arguments(dev, M, N, prep, ssum, tables))
+    return (*tables, prep.nregions)
 
 
 def upload_segments(sj, ss, se, seg_off, device):
@@ -213,9 +323,8 @@ def paint_tables_device(sj, ss, se, seg_off, M: int, N: int, ploidy: int,
     arrays. Raises, naming -paintSparse, when the dense tables do not fit
     on the card."""
     dev = resolve_device(device)
-    n_inds = M // ploidy
     if dev.type == "cuda":
-        need = 8 * (4 * n_inds * n_inds + n_inds) + 12 * len(sj) + 8 * (M + 1)
+        need = device_bytes(M, N, ploidy, len(sj))
         # the driver's free memory and what torch's cache holds unused
         free = (torch.cuda.mem_get_info(dev)[0]
                 + torch.cuda.memory_reserved(dev)

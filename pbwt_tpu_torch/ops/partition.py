@@ -148,13 +148,28 @@ def group_scan(W: torch.Tensor, a0: torch.Tensor):
     return ycols, counts, a_pp[1]
 
 
+def _cummax(v: torch.Tensor, width: int = 1024) -> torch.Tensor:
+    """Inclusive running max of a 1-D int64 tensor: a cummax along the rows
+    of a (rows, width) view, then each row's carry from the rows before (a
+    single long row would be one scan on the card)."""
+    n = v.numel()
+    rows = -(-n // width)
+    m = torch.full((rows * width,), torch.iinfo(torch.long).min,
+                   dtype=torch.long, device=v.device)
+    m[:n] = v
+    m = torch.cummax(m.view(rows, width), 1).values
+    if rows > 1:
+        carry = torch.cummax(m[:, -1], 0).values
+        m[1:] = torch.maximum(m[1:], carry[:-1, None])
+    return m.view(-1)[:n]
+
+
 def _segmented_cummax(v: torch.Tensor, resets: torch.Tensor) -> torch.Tensor:
     """Inclusive running max of int v restarting at each True in resets
     (the reset applies to its own position). Segments are lifted apart by
     their index above the 32-bit value range, so one cummax serves."""
     seg = torch.cumsum(resets.long(), 0) << 32
-    return torch.cummax(seg + (v.long() + (1 << 31)), 0).values - seg \
-        - (1 << 31)
+    return _cummax(seg + (v.long() + (1 << 31))) - seg - (1 << 31)
 
 
 def partition_ad_step_plain(a, d, w, s: int, kk: int):

@@ -9,6 +9,8 @@ import io
 import os
 import subprocess
 import sys
+from collections import defaultdict
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -96,6 +98,29 @@ def hand_segments(seed, M, N, ploidy, empty=(), tail=()):
     return sj, ss, se, np.asarray(off, np.int64)
 
 
+def heavy_segments(seed, M, N):
+    """A heavy cell: at ploidy 2, individual 1 covers both haplotypes of
+    individual 0 at every site (a segment [0, N), whose window no other
+    segment of theirs stops, as they all start at 0 or 1), so that cell
+    takes about 2N additions; the other recipients as hand_segments."""
+    rng = np.random.RandomState(seed)
+    sj, ss, se, off = hand_segments(seed, M, N, 2, tail=(5,))
+    cols = []
+    for i in range(M):
+        c = np.stack([sj, ss, se])[:, off[i]:off[i + 1]]
+        if i < 2:
+            n = rng.randint(3, 9)
+            e = np.sort(rng.randint(2, N, size=n))
+            c = np.concatenate([np.stack([rng.randint(0, M, size=n),
+                                          rng.randint(0, 2, size=n), e]),
+                                [[2 + i], [0], [N]]], axis=1)
+        cols.append(c)
+    out = (np.ascontiguousarray(c, np.int32)
+           for c in np.concatenate(cols, axis=1))
+    return (*out, np.concatenate([[0], np.cumsum([c.shape[1] for c in cols])]
+                                 ).astype(np.int64))
+
+
 def host_c(lib, segs, M, N, ploidy, cpr):
     """native paint_accumulate of lib: (counts, totlengths, counts2, counts3,
     nregions)."""
@@ -128,6 +153,7 @@ CASES = {   # name -> (segments, M, N, ploidy, chunksperregion)
                        30, 60, 2, 2),
     "tail_ploidy1": (lambda: hand_segments(5, 21, 45, 1, empty=(0,),
                                            tail=(1, 2, 9)), 21, 45, 1, 3),
+    "heavy_cell": (lambda: heavy_segments(6, 12, 300), 12, 300, 2, 2),
 }
 
 
@@ -226,6 +252,179 @@ def test_covering_pairs_counts_the_window():
                 m += 1
     t = (torch.from_numpy(a) for a in (off, sj, ss, se))
     assert port_device.covering_pairs(*t, N, ploidy) == n > 0
+
+
+def host_loop(segs, M, N, ploidy, cpr):
+    """The host's loop (native paint_accumulate) in Python: each (haplotype,
+    site)'s normaliser, each cell's window pairs (haplotype, site, start,
+    end) in the order the host adds them, and each haplotype's close
+    sites."""
+    sj, ss, se, off = (a.tolist() for a in segs)
+    n = M // ploidy
+    ssum = np.zeros((M, N), np.int64)
+    pairs, closes = defaultdict(list), [[] for _ in range(M)]
+    for i in range(M):
+        lo, hi = off[i], off[i + 1]
+        if lo == hi:
+            continue
+        me, m1, n1 = i // ploidy, lo, 1
+        for k in range(1, N):
+            while se[m1] <= k and m1 < hi - 1:
+                if n1 % cpr == 0:
+                    closes[i].append(k)
+                m1, n1 = m1 + 1, n1 + 1
+            m = m1
+            while m < hi and ss[m] < k:
+                if sj[m] // ploidy != me:
+                    ssum[i, k] += (k - ss[m]) * (se[m] - k)
+                    pairs[me * n + sj[m] // ploidy].append(
+                        (i, k, ss[m], se[m]))
+                m += 1
+    return ssum, pairs, closes
+
+
+def normalisers(prep, M, N):
+    """Plain sums of K6's first phase: (M, N) int64, the weights
+    (k - start)(end - k) of the intervals at each (haplotype, site), from
+    difference arrays of their count, start + end and start * end."""
+    a, b, s, e = prep.hap_iv.long().t()
+    hap = torch.repeat_interleave(torch.arange(M), torch.diff(prep.hap_off))
+    d = torch.zeros((3, M, N + 1), dtype=torch.long)
+    for c, v in enumerate((torch.ones_like(s), s + e, s * e)):
+        d[c].index_put_((hap, a), v, accumulate=True)
+        d[c].index_put_((hap, b), -v, accumulate=True)
+    c = d.cumsum(2)[:, :, :N]
+    k = torch.arange(N)
+    return (-c[0] * k * k + c[1] * k - c[2]).numpy()
+
+
+def after(sites, lo, hi, k):
+    """The first index in [lo, hi) whose close site is past k."""
+    while lo < hi and sites[lo] <= k:
+        lo += 1
+    return lo
+
+
+def cell_walk(prep, c):
+    """K6's walk of cell c in its order (csrc/paint.cu, k6_cells): ("add",
+    haplotype, site, start, end) for every weighed pair and ("close",
+    haplotype) where the open region is flushed (a close between two of its
+    additions, or after its last in a haplotype)."""
+    a, b, st, en = prep.cell_iv.t().tolist()
+    hap, off = prep.cell_hap.tolist(), prep.cell_off.tolist()
+    cl, close_off = prep.close_site.tolist(), prep.close_off.tolist()
+    i, end = off[c], off[c + 1]
+    while i < end:
+        h, j = hap[i], i
+        while j < end and hap[j] == h:
+            j += 1
+        cend = close_off[h + 1]
+        k, p, q = a[i], i, i
+        cp = after(cl, close_off[h], cend, k)
+        while True:
+            while q < j and a[q] <= k:
+                q += 1
+            for r in range(p, q):
+                yield "add", h, k, st[r], en[r]
+            nk = k + 1
+            while p < j and b[p] <= nk:
+                p += 1
+            if p == j:
+                break
+            q = max(q, p)
+            if q == p:
+                nk = max(nk, a[p])
+            if cp < cend and cl[cp] <= nk:
+                yield "close", h
+                cp = after(cl, cp, cend, nk)
+            k = nk
+        if cp < cend:
+            yield "close", h
+        i = j
+
+
+def fma(x, y, z):
+    """x * y + z rounded once (Python 3.12 has no math.fma)."""
+    return float(Fraction(x) * Fraction(y) + Fraction(z))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_k6_preparation_matches_host_loop(case):
+    """K6's preparation on CPU tensors against the host's loop: the
+    normalisers exactly, each cell's pairs in the host's order, each
+    haplotype's close sites and the region counts; the pairs are the twin's
+    count."""
+    make, M, N, ploidy, cpr = CASES[case]
+    segs = make()
+    cols = [torch.from_numpy(a) for a in (segs[3], *segs[:3])]
+    prep = port_device.prepare(*cols, M, N, ploidy, cpr)
+    ssum, pairs, closes = host_loop(segs, M, N, ploidy, cpr)
+    assert np.array_equal(normalisers(prep, M, N)[:, 1:], ssum[:, 1:])
+    keys = prep.cell_key.tolist()
+    assert keys == sorted(pairs) and sorted(prep.sched.tolist()) == list(
+        range(len(keys)))
+    for c, key in enumerate(keys):
+        walk = [ev[1:] for ev in cell_walk(prep, c) if ev[0] == "add"]
+        assert walk == pairs[key]
+    off = prep.close_off.tolist()
+    assert [prep.close_site[off[i]:off[i + 1]].tolist()
+            for i in range(M)] == closes
+    want = np.array([sum(len(closes[i * ploidy + h]) for h in range(ploidy))
+                     for i in range(M // ploidy)], np.float64)
+    assert np.array_equal(prep.nregions.numpy(), want)
+    assert sum(map(len, pairs.values())) == port_device.covering_pairs(
+        *cols, N, ploidy)
+    if case == "heavy_cell":
+        assert max(map(len, pairs.values())) >= 2 * (N - 2)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_k6_cell_order_equals_host_c_bits(case):
+    """The cells walked in K6's order with Python floats (IEEE f64, each
+    operation rounded once; the region squares one fused multiply-add) over
+    the preparation and the exact normalisers: the five tables equal the
+    port's C pass bit for bit."""
+    make, M, N, ploidy, cpr = CASES[case]
+    segs = make()
+    cols = [torch.from_numpy(a) for a in (segs[3], *segs[:3])]
+    prep = port_device.prepare(*cols, M, N, ploidy, cpr)
+    z = normalisers(prep, M, N).astype(np.float64)
+    n = M // ploidy
+    got = np.zeros((4, n * n))
+    for c in prep.sched.tolist():
+        tl = cnt = c2 = c3 = part = 0.0
+        at = -1
+        for ev in cell_walk(prep, c):
+            if ev[1] != at:             # a haplotype opens with no region
+                at, part = ev[1], 0.0
+            if ev[0] == "close":        # a flush of a zero part changes nothing
+                c2, c3, part = fma(part, part, c2), c3 + part, 0.0
+                continue
+            _, h, k, s, e = ev
+            if z[h, k] == 0.0:          # the host skips a site whose sum is 0
+                continue
+            w = float((k - s) * (e - k)) / z[h, k]
+            tc = w / float(e - s)
+            tl, cnt, part = tl + w, cnt + tc, part + tc
+        got[:, prep.cell_key[c]] = cnt, tl, c2, c3
+    want = host_c(port_native.get_lib(), segs, M, N, ploidy, cpr)
+    for g, w in zip((*got.reshape(4, n, n), prep.nregions.numpy()), want):
+        assert np.array_equal(g.view(np.int64), w.view(np.int64))
+    assert want[0].any()
+
+
+def test_k6_arguments_match_the_entry_signature(monkeypatch):
+    """The arguments the wrapper hands the C entry are as many as its ctypes
+    signature types (a surplus one would go as a 32-bit int)."""
+    make, M, N, ploidy, cpr = CASES["panel_cpr3"]
+    sj, ss, se, off = make()
+    prep = port_device.prepare(*(torch.from_numpy(a) for a in
+                                 (off, sj, ss, se)), M, N, ploidy, cpr)
+    monkeypatch.setattr(kernels, "stream", lambda dev: 0)
+    dev = type("Dev", (), {"index": 0})()
+    args = port_device.k6_arguments(dev, M, N, prep, torch.zeros(1),
+                                    [torch.zeros(1)] * 4)
+    assert len(args) == len(kernels._SIGNATURES["k6_paint_accumulate"]) == 20
 
 
 def test_paint_device_route_needs_whole_individuals():
