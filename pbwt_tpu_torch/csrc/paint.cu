@@ -49,6 +49,8 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
+
 namespace {
 
 constexpr int NORM_THREADS = 128;
@@ -195,32 +197,52 @@ k6_cells(long long ncells, const int* __restrict__ sched,
     while (j < end && __ldg(cell_hap + j) == h) ++j;
     const double* row = ssum + (size_t)h * N;
     const long long cend = __ldg(close_off + h + 1);
-    int k = __ldg(&cell_iv[i].x);
+    // the walk keeps in registers the interval at p (v: its end is the
+    // first to come), the start of the one at q (qa) and the next close
+    // site (cs), and loads one of them again only when its pointer moves
+    int4 v = __ldg(cell_iv + i);
+    int k = v.x, qa = v.x;
     // closes up to the first site find the region empty
     long long cp = past(close_site, __ldg(close_off + h), cend, k);
+    int cs = cp < cend ? __ldg(close_site + cp) : INT_MAX;
     long long p = i, q = i;
     double part = 0.0;
     for (;;) {
-      while (q < j && __ldg(&cell_iv[q].x) <= k) ++q;
+      while (qa <= k) {
+        ++q;
+        qa = q < j ? __ldg(&cell_iv[q].x) : INT_MAX;
+      }
       const double z = __ldg(row + k);
       if (z != 0.0) {  // the host skips a site whose window sums to 0
-        for (long long r = p; r < q; ++r) {
-          const int4 v = __ldg(cell_iv + r);  // a, b, start, end
+        if (q - p == 1) {
           const double w = __ddiv_rn(__dmul_rn((double)(k - v.z), (double)(v.w - k)), z);
           const double tc = __ddiv_rn(w, (double)(v.w - v.z));
           tl = __dadd_rn(tl, w);
           cnt = __dadd_rn(cnt, tc);
           part = __dadd_rn(part, tc);
+        } else {
+          for (long long r = p; r < q; ++r) {
+            const int4 u = __ldg(cell_iv + r);  // a, b, start, end
+            const double w = __ddiv_rn(__dmul_rn((double)(k - u.z), (double)(u.w - k)), z);
+            const double tc = __ddiv_rn(w, (double)(u.w - u.z));
+            tl = __dadd_rn(tl, w);
+            cnt = __dadd_rn(cnt, tc);
+            part = __dadd_rn(part, tc);
+          }
         }
       }
       int nk = k + 1;
-      while (p < j && __ldg(&cell_iv[p].y) <= nk) ++p;
+      while (v.y <= nk && ++p < j) v = __ldg(cell_iv + p);
       if (p == j) break;
-      if (q < p) q = p;
-      if (q == p) nk = max(nk, __ldg(&cell_iv[p].x));  // nothing covers k + 1
-      if (cp < cend && __ldg(close_site + cp) <= nk) {  // a close before nk's additions
+      if (q < p) {
+        q = p;
+        qa = v.x;
+      }
+      if (q == p) nk = max(nk, v.x);  // nothing covers k + 1
+      if (cs <= nk) {  // a close before nk's additions
         flush(part, c2, c3);
         cp = past(close_site, cp, cend, nk);
+        cs = cp < cend ? __ldg(close_site + cp) : INT_MAX;
       }
       k = nk;
     }

@@ -207,8 +207,8 @@ def prepare(seg_off, sj, ss, se, M: int, N: int, ploidy: int,
     i32 = torch.int32
     rec, pos, last, k0, k1, t0 = _windows(seg_off, ss, se, N)
     e = se.long()
-    ind = sj.long() // ploidy
-    other = ind != rec // ploidy
+    ind, me = sj.long() // ploidy, rec // ploidy
+    other = ind != me
     # a live interval needs end >= start + 2, and then its tail (the last
     # segment's) starts at t0 = end = k1: the two make one interval
     live = other & (k0 < k1)
@@ -216,12 +216,14 @@ def prepare(seg_off, sj, ss, se, M: int, N: int, ploidy: int,
     sid = torch.nonzero(live | tail).squeeze(1)
     a = torch.where(live, k0, t0)[sid]
     b = torch.where(tail, N, k1)[sid]
-    hap, donor = rec[sid], ind[sid]
+    hap = rec[sid]
     # an interval's four fields are one 16-byte element: one load in K6,
     # and one gather into cell order
-    iv = torch.stack([a.to(i32), b.to(i32), ss[sid], se[sid]], 1)
+    iv = torch.empty((sid.numel(), 4), dtype=i32, device=dev)
+    for col, x in enumerate((a, b, ss[sid], se[sid])):
+        iv[:, col] = x
 
-    key = hap // ploidy * n_inds + donor
+    key = me[sid] * n_inds + ind[sid]
     if n_inds * n_inds < 1 << 31:       # a radix sort of half the passes
         key = key.to(i32)
     key, perm = torch.sort(key, stable=True)
