@@ -230,6 +230,20 @@ def _frame_coordinates(p_ref: PBWT, p_frame: PBWT) -> np.ndarray:
     return kold_of_kref
 
 
+def _vote_sums(voted, x_all, dos_all):
+    """Per reference site over the targets that voted: (the count, the sum
+    of dosages, of alleles, of dosage x allele), for the info scores."""
+    return (voted.sum(axis=0), np.where(voted, dos_all, 0.0).sum(axis=0),
+            np.where(voted, x_all, 0).sum(axis=0).astype(np.float64),
+            np.where(voted, dos_all * x_all, 0.0).sum(axis=0))
+
+
+def _emit(x_all, dos_all, a):
+    """native.impute_emit on the (T, Nref) results made site-major."""
+    return native.impute_emit(np.ascontiguousarray(x_all.T),
+                              np.ascontiguousarray(dos_all.T), a)
+
+
 def _set_impute_info(ref_sites, psums, xsums, pxsums, nvote) -> None:
     with np.errstate(invalid="ignore", divide="ignore"):
         psn = psums / nvote
@@ -330,18 +344,14 @@ def reference_impute3(p_old: PBWT, p_ref: PBWT, p_frame: PBWT,
             dos_all = np.where(miss, dos_all, x_nat.astype(np.float64))
         else:
             n_conflicts = int((~voted).sum())
-        nvote = voted.sum(axis=0)
-        psums = np.where(voted, dos_all, 0.0).sum(axis=0)
-        xsums = np.where(voted, x_all, 0).sum(axis=0).astype(np.float64)
-        pxsums = np.where(voted, dos_all * x_all, 0.0).sum(axis=0)
+        nvote, psums, xsums, pxsums = _vote_sums(voted, x_all, dos_all)
 
         u_new = engine.WriteCursor(T)
         if lib is not None:
             # whole output stage in one C pass (gather + pack3 + dosage
             # RLE + prefix advance per site)
-            p_new.yz, p_new.zDosage, dos_off, p_new.aFend = \
-                native.impute_emit(np.ascontiguousarray(x_all.T),
-                                   np.ascontiguousarray(dos_all.T), u_new.a)
+            p_new.yz, p_new.zDosage, dos_off, p_new.aFend = _emit(
+                x_all, dos_all, u_new.a)
             p_new.dosageOffset = dos_off
         else:
             zdosage = bytearray()

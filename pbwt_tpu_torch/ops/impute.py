@@ -7,7 +7,10 @@ weights w = (k - start)(end - k), k the site's frame coordinate
 sums as an f32 cumulative-sum difference over (nseg, chunk) arrays; here
 kernel ``k5_impute_vote`` sums each (target, site)'s own covering segments in
 f64, in segment order, so the dosages are the host C pass's to the bit: the
-weights are integers and the sums exact below 2^53.
+weights are integers and the sums exact below 2^53. A block of the kernel
+takes a target and a span of chunks of sites and carries the run of segments
+that can weigh from chunk to chunk; a pre-pass of the same launch finds where
+each (target, span) starts (:func:`vote_window` is its plain twin).
 """
 
 from __future__ import annotations
@@ -16,8 +19,14 @@ import numpy as np
 import torch
 
 from . import kernels, resolve_device
+from .partition import _cummax
 
 TWIN_ELEMENTS = 1 << 24     # (segment, site) pairs a step of the plain twin
+CHUNK, SPAN_MAX = kernels.K5_LAYOUT   # sites a chunk, most chunks a span
+# the slab of donor alleles that the blocks running at one time read, Mref x
+# span x CHUNK bytes, is kept this far under the card's 50 MB L2
+SPAN_L2_BYTES = 40 << 20
+_LIFT = 1 << 31             # int32 values shifted to be non-negative
 
 
 def impute_vote_plain(seg_off, seg_jref, seg_s, seg_e, Xref, kold, ref_freq):
@@ -51,6 +60,67 @@ def impute_vote_plain(seg_off, seg_jref, seg_s, seg_e, Xref, kold, ref_freq):
     return dosage, (dosage > 0.5).to(torch.uint8), voted
 
 
+def span_chunks(mref: int) -> int:
+    """Chunks of CHUNK sites a block of K5 walks: as many as keep the slab
+    of Xref that the blocks running together read, mref x span x CHUNK
+    bytes, within SPAN_L2_BYTES; 1 to SPAN_MAX."""
+    return max(1, min(SPAN_MAX, SPAN_L2_BYTES // (max(mref, 1) * CHUNK)))
+
+
+def vote_window(seg_off, seg_e, kold, span):
+    """Where each block of K5 starts its run of segments: the plain twin of
+    the kernel's pre-pass (k5_bounds, k5_window).
+
+    Returns (emax (nseg,) int32: each segment's running maximum of ends
+    within its target; first (nspans, T) int64: for span p (sites
+    [p * span * CHUNK, (p + 1) * span * CHUNK) of kold) and target t, the
+    first of t's segments whose emax exceeds the span's least frame
+    coordinate, or seg_off[t + 1] where none does). The segments before it
+    end at or before every site of the span and weigh nowhere there. One
+    binary search over the targets' running maxima, lifted apart by target
+    so that they form one sorted array.
+    """
+    dev = seg_e.device
+    T, nseg, Nref = seg_off.numel() - 1, seg_e.numel(), kold.numel()
+    rank = torch.arange(T, device=dev) << 32
+    lifted = torch.repeat_interleave(rank, seg_off[1:] - seg_off[:-1],
+                                     output_size=nseg) + seg_e + _LIFT
+    top = _cummax(lifted)
+    emax = (top & 0xFFFFFFFF).sub_(_LIFT).to(torch.int32)
+    sites = span * CHUNK
+    nspans = -(-Nref // sites)
+    least = torch.full((nspans * sites,), torch.iinfo(torch.int32).max,
+                       dtype=torch.long, device=dev)
+    least[:Nref] = kold
+    least = least.view(nspans, sites).amin(1)
+    first = torch.searchsorted(top, (rank[None, :] + (least + _LIFT)[:, None])
+                               .view(-1), right=True)
+    return emax, first.view(nspans, T)
+
+
+def window_buffers(seg_e, T, Nref, span):
+    """(emax, first, bounds): what K5's pre-pass writes, allocated; bounds
+    holds each span's least frame coordinate, then each chunk's least and
+    largest."""
+    nchunks = -(-Nref // CHUNK)
+    nspans = -(-nchunks // span)
+    dev = seg_e.device
+    return (torch.empty_like(seg_e),
+            torch.empty((nspans, T), dtype=torch.int64, device=dev),
+            torch.empty(nspans + 2 * nchunks, dtype=torch.int32, device=dev))
+
+
+def k5_arguments(dev, seg_off, seg_jref, seg_s, seg_e, Xref, kold, ref_freq,
+                 span, window, out):
+    """The arguments of the C entry k5_impute_vote, in its order: window =
+    :func:`window_buffers`, out = (dosage, x, voted)."""
+    return (dev.index, seg_off.data_ptr(), seg_jref.data_ptr(),
+            seg_s.data_ptr(), seg_e.data_ptr(), seg_off.numel() - 1,
+            Xref.data_ptr(), Xref.shape[1], kold.data_ptr(),
+            ref_freq.data_ptr(), span, *(w.data_ptr() for w in window),
+            *(o.data_ptr() for o in out), kernels.stream(dev))
+
+
 def impute_vote(seg_off, seg_jref, seg_s, seg_e, Xref, kold, ref_freq):
     """The weighted vote of every target at every reference site (kernel
     K5).
@@ -76,15 +146,14 @@ def impute_vote(seg_off, seg_jref, seg_s, seg_e, Xref, kold, ref_freq):
     if (seg_s.numel() != nseg or seg_e.numel() != nseg
             or kold.numel() != Nref or ref_freq.numel() != Nref or T < 0):
         raise ValueError("impute_vote: inconsistent shapes")
-    dosage = torch.empty((T, Nref), dtype=f64, device=dev)
-    x = torch.empty((T, Nref), dtype=u8, device=dev)
-    voted = torch.empty((T, Nref), dtype=u8, device=dev)
-    kernels.launch("k5_impute_vote", dev.index, seg_off.data_ptr(),
-                   seg_jref.data_ptr(), seg_s.data_ptr(), seg_e.data_ptr(), T,
-                   Xref.data_ptr(), Nref, kold.data_ptr(),
-                   ref_freq.data_ptr(), dosage.data_ptr(), x.data_ptr(),
-                   voted.data_ptr(), kernels.stream(dev))
-    return dosage, x, voted
+    out = tuple(torch.empty((T, Nref), dtype=dt, device=dev)
+                for dt in (f64, u8, u8))
+    if T and Nref:
+        span = span_chunks(Mref)
+        kernels.launch("k5_impute_vote", *k5_arguments(
+            dev, seg_off, seg_jref, seg_s, seg_e, Xref, kold, ref_freq, span,
+            window_buffers(seg_e, T, Nref, span), out))
+    return out
 
 
 def reference_rows(Xcols: np.ndarray, device=None) -> torch.Tensor:
@@ -125,12 +194,22 @@ def impute_dosages_device(segments: np.ndarray, n_targets: int, Xref_nat,
     dev = resolve_device(device)
     if not torch.is_tensor(Xref_nat):
         Xref_nat = torch.from_numpy(np.ascontiguousarray(Xref_nat, np.uint8))
-    Xref = Xref_nat.to(dev)
-    off, jref, s, e = (torch.from_numpy(c).to(dev)
-                       for c in segment_columns(np.asarray(segments),
-                                                n_targets))
-    kold = torch.from_numpy(np.asarray(kold_of_kref, np.int32)).to(dev)
-    freq = torch.from_numpy(np.asarray(ref_freq, np.float64)).to(dev)
-    dosage, x, voted = impute_vote(off, jref, s, e, Xref, kold, freq)
+    off, jref, s, e, kold, freq = upload_columns(segments, n_targets,
+                                                 kold_of_kref, ref_freq, dev)
+    return download(*impute_vote(off, jref, s, e, Xref_nat.to(dev), kold,
+                                 freq))
+
+
+def upload_columns(segments, n_targets, kold_of_kref, ref_freq, dev):
+    """The vote's inputs on dev: :func:`segment_columns` of the segments,
+    then kold as int32 and ref_freq as float64."""
+    cols = (*segment_columns(np.asarray(segments), n_targets),
+            np.asarray(kold_of_kref, np.int32),
+            np.asarray(ref_freq, np.float64))
+    return tuple(torch.from_numpy(c).to(dev) for c in cols)
+
+
+def download(dosage, x, voted):
+    """The vote's (x, dosage, voted) as numpy arrays, voted as bool."""
     return (x.cpu().numpy(), dosage.cpu().numpy(),
             voted.cpu().numpy().astype(bool))

@@ -43,7 +43,8 @@ _SIGNATURES = {
                       _P, _P, _I, _P, _P],
     "k4_ls_step": [_I, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P],
     "k4_ls_eval": [_I, _P, _L, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P],
-    "k5_impute_vote": [_I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
+    "k5_impute_vote": [_I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _P,
+                       _P, _P, _P, _P],
     "k6_paint_accumulate": [_I, _I, _I, _I, _P, _P, _L, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _P, _P, _P, _P],
 }
@@ -52,7 +53,8 @@ _SIGNATURES = {
 LAUNCHES = dict.fromkeys(_SIGNATURES, 0)
 
 # entries that launch nothing: name -> argument types
-_AUX_SIGNATURES = {"pbwt_partition_layout": [_I], "k3_plane_layout": [_I]}
+_AUX_SIGNATURES = {"pbwt_partition_layout": [_I], "k3_plane_layout": [_I],
+                   "k5_layout": [_I]}
 
 # scratch of the partition kernels (K1, K2): ints of the header, ints of one
 # tile summary, and the fewest rows of a tile; checked against the compiled
@@ -65,6 +67,9 @@ ERROR_WORD = 2          # int of the header a capped wait reports through
 # int32 words a block of K3's rank plane (the rank at the block's start, then
 # the zero bits of its 32 * (PLANE_WORDS - 1) rows); checked likewise
 PLANE_WORDS = 4
+
+# K5's sites a chunk and most chunks a span of a block; checked likewise
+K5_LAYOUT = (256, 32)
 
 _lock = threading.Lock()
 _lib = None
@@ -147,6 +152,10 @@ def library() -> ctypes.CDLL:
                 raise RuntimeError(f"pbwt_tpu_torch: rank plane of "
                                    f"{lib.k3_plane_layout(1)} words a block, "
                                    f"not {PLANE_WORDS}")
+            if (lib.k5_layout(1), lib.k5_layout(2)) != K5_LAYOUT:
+                raise RuntimeError(f"pbwt_tpu_torch: K5 layout "
+                                   f"{(lib.k5_layout(1), lib.k5_layout(2))}"
+                                   f" != {K5_LAYOUT}")
             _lib = lib
     return _lib
 

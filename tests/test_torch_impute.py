@@ -15,6 +15,7 @@ import pbwt_tpu.core.pbwt as ref_pbwt
 import pbwt_tpu.core.registry as ref_registry
 import pbwt_tpu.utils as ref_utils
 from pbwt_tpu.ops import impute_jax
+from chip_smoke import vote_in_order, wide_segments
 import pbwt_tpu_torch.algos.impute as port_impute
 import pbwt_tpu_torch.core.native as port_native
 import pbwt_tpu_torch.core.pbwt as port_pbwt
@@ -144,6 +145,217 @@ def test_vote_twin_edge_shapes():
     inside = (kold > 2) & (kold < 9)
     assert np.array_equal(voted[0], inside)
     assert np.array_equal(dosage[0][inside], Xref[7][inside].astype(float))
+
+
+def edge_segments(seed, T=5, N=700, heavy=60):
+    """Vote inputs at the edges of K5's design, as numpy arrays: a frame
+    coordinate a site that repeats and jumps; random segments (some end
+    before an earlier one); `heavy` segments that all weigh in chunk 1;
+    target 2 without segments; target 3 with one segment over every site;
+    target 4 with ends equal to a span's least coordinate.
+    Returns (off, jref, start, end, Xref, kold, ref_freq) sorted by (target,
+    start)."""
+    rng = np.random.RandomState(seed)
+    kold = np.cumsum(rng.choice([0, 0, 1, 1, 2, 9, 40], size=N))
+    frame = int(kold[-1]) + 1
+    lo, hi = int(kold[256]), int(kold[511])
+    s = rng.randint(0, frame, size=80)
+    e = s + rng.randint(1, frame // 3, size=80)
+    tg = rng.choice([0, 1, 3, 4], size=80)
+    # target 4 starts with two segments that end exactly at the least
+    # coordinate of a span of 1 or 2 chunks, where its first segment turns
+    s = np.concatenate([s, lo - rng.randint(1, 4, size=heavy), [0], [0, 0]])
+    e = np.concatenate([e, hi + rng.randint(1, 4, size=heavy), [frame],
+                        kold[[256, 512]]])
+    tg = np.concatenate([tg, np.ones(heavy, int), [3], [4, 4]])
+    order = np.lexsort((s, tg))
+    off = np.zeros(T + 1, np.int64)
+    np.cumsum(np.bincount(tg, minlength=T), out=off[1:])
+    Xref = (rng.random_sample((30, N)) < 0.4).astype(np.uint8)
+    return (off, rng.randint(0, 30, size=len(tg)).astype(np.int32),
+            s[order].astype(np.int32), e[order].astype(np.int32), Xref,
+            kold.astype(np.int32), rng.random_sample(N))
+
+
+def window_loop(off, e, kold, span):
+    """vote_window's (emax, first) by a plain loop."""
+    T, C = len(off) - 1, port_device.CHUNK
+    emax = np.empty(len(e), np.int64)
+    for t in range(T):
+        top = None
+        for i in range(off[t], off[t + 1]):
+            top = e[i] if top is None else max(top, e[i])
+            emax[i] = top
+    sites = span * C
+    first = np.empty((-(-len(kold) // sites), T), np.int64)
+    for p in range(first.shape[0]):
+        least = kold[p * sites:(p + 1) * sites].min()
+        for t in range(T):
+            i = off[t]
+            while i < off[t + 1] and emax[i] <= least:
+                i += 1
+            first[p, t] = i
+    return emax, first
+
+
+@pytest.mark.parametrize("span", [1, 2, 32])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_vote_window_matches_a_loop(seed, span):
+    """K5's preparation (each segment's running maximum of ends within its
+    target, each (span, target)'s first segment) against a plain loop, with
+    a target without segments, segments that end before an earlier one and
+    a frame coordinate that repeats and jumps; and span_chunks from Mref."""
+    off, _, _, e, _, kold, _ = edge_segments(seed)
+    assert off[3] == off[2] and (np.diff(e[off[0]:off[1]]) < 0).any()
+    emax, first = port_device.vote_window(
+        *(torch.from_numpy(a) for a in (off, e, kold)), span)
+    want_emax, want_first = window_loop(off, e, kold, span)
+    assert emax.dtype == torch.int32 and first.dtype == torch.int64
+    assert np.array_equal(emax.numpy(), want_emax)
+    assert np.array_equal(first.numpy(), want_first)
+    assert [port_device.span_chunks(m) for m in (1, 20_000, 10**7)] == [
+        port_device.SPAN_MAX, 8, 1]
+
+
+EXACT_U32 = 4.0e9     # K5's integer regime: sums below 2^32 (impute_vote.cu)
+
+
+def k5_model(off, jref, s, e, Xref, kold, freq, span, rows):
+    """K5's blocks as csrc/impute_vote.cu walks them, in Python numbers (the
+    same f64 roundings): a block a (span, target) from vote_window's first
+    segment; per chunk a run of 32 segments a step, packed into slices of
+    `rows` while the starts stay below the chunk's largest coordinate and
+    kept where the end passes its least; the next chunk's scan from the
+    first segment whose running maximum of ends passes the least coordinate
+    still to come; every site summing its slices in order, as unsigned
+    32-bit integers while the slices' bounds allow, then in f64."""
+    big = 2**31 - 1
+    emax, first = (a.numpy() for a in port_device.vote_window(
+        *(torch.from_numpy(a) for a in (off, e, kold)), span))
+    T, N, C = len(off) - 1, Xref.shape[1], port_device.CHUNK
+    sp, ep, emp = (np.append(a, 0) for a in (s, e, emax))
+    dosage = np.empty((T, N))
+    voted = np.zeros((T, N), bool)
+    for p, t in np.ndindex(first.shape):
+        c0 = p * span
+        nch = min(span, -(-N // C) - c0)
+        ks = [kold[(c0 + c) * C:(c0 + c + 1) * C] for c in range(nch)]
+        clo, chi = [int(k.min()) for k in ks], [int(k.max()) for k in ks]
+        lsuf = [min(clo[c:]) for c in range(nch)] + [big]
+        end = off[t + 1]
+
+        def pack(pos, lo, hi, lnext, find_next):
+            start, kept, nxt = pos, [], -1
+            while True:
+                idx = np.arange(pos, pos + 32)
+                valid = idx < end
+                at = np.minimum(idx, len(s))
+                stop = ~valid | (sp[at] >= hi)
+                lim = int(np.argmax(stop)) if stop.any() else 32
+                if find_next and nxt < 0:
+                    past = (valid & (emp[at] > lnext)) | stop
+                    if past.any():
+                        nxt = pos + int(np.argmax(past))
+                keep = [pos + i for i in range(lim) if ep[at[i]] > lo]
+                room = rows - len(kept)
+                if len(keep) > room:
+                    kept += keep[:room]
+                    return kept, keep[room], (nxt if nxt >= 0 else
+                                              keep[room])
+                kept += keep
+                if stop.any():
+                    return kept, None, (nxt if nxt >= 0 else start)
+                pos += 32
+
+        def bound(sl, lo, hi):
+            if not sl:
+                return 0.0
+            reach = max(int(e[i]) - lo for i in sl)
+            return float(len(sl)) * float(hi - int(s[sl[0]])) * float(reach)
+
+        scan = first[p, t]
+        for c in range(nch):
+            kept, resume, scan = pack(scan, clo[c], chi[c], lsuf[c + 1], True)
+            slices = [kept]
+            while resume is not None:
+                kept, resume, _ = pack(resume, clo[c], chi[c], big, False)
+                slices.append(kept)
+            assert all(len(sl) <= rows for sl in slices)
+            exact, cb = [], 0.0
+            for sl in slices:
+                cb += bound(sl, clo[c], chi[c])
+                exact.append(cb < EXACT_U32)
+            for k in range((c0 + c) * C, min((c0 + c + 1) * C, N)):
+                ko, isum, iscore = int(kold[k]), 0, 0
+                ssum = score = None
+                for sl, fits in zip(slices, exact):
+                    if fits:
+                        for i in sl:
+                            w = max(ko - int(s[i]), 0) * max(int(e[i]) - ko, 0)
+                            isum += w
+                            iscore += w * int(Xref[jref[i], k])
+                        assert isum < 2**32
+                        continue
+                    if ssum is None:
+                        ssum, score = float(isum), float(iscore)
+                    for i in sl:
+                        if s[i] >= ko:
+                            continue
+                        w = float(ko - int(s[i])) * float(int(e[i]) - ko)
+                        if w > 0.0:
+                            ssum += w
+                            if Xref[jref[i], k]:
+                                score += w
+                if ssum is None:
+                    ssum, score = float(isum), float(iscore)
+                dosage[t, k] = freq[k] if ssum == 0.0 else score / ssum
+                voted[t, k] = ssum != 0.0
+    return dosage, (dosage > 0.5).astype(np.uint8), voted
+
+
+@pytest.mark.parametrize("span,rows", [(1, 32), (2, 32), (2, 3), (32, 5)])
+def test_k5_design_matches_twin_bit_for_bit(span, rows):
+    """K5's walk as designed (k5_model: the carried run of segments, slices
+    of a slot, a chunk with more segments than a slot, the integer regime
+    and its way out) against the twin bit for bit, on the design's edge
+    cases and on the matches of a real imputation problem; and against the
+    host's order of f64 additions where weights pass 2^32 and sums 2^53."""
+    problems = [edge_segments(2 + span)]
+    Xref, Xq, frame_idx = problem(7, 200, 6, 600)
+    segments, kold, ref_freq = vote_inputs(Xref, Xq, frame_idx, drop=2)
+    cols = port_device.segment_columns(segments, 6)
+    problems.append((*cols, Xref, kold.astype(np.int32), ref_freq))
+    for args in problems:
+        got = k5_model(*args, span, rows)
+        want = port_device.impute_vote_plain(*(torch.from_numpy(
+            np.ascontiguousarray(a)) for a in args))
+        assert np.array_equal(bits(got[0]), bits(want[0].numpy()))
+        assert np.array_equal(got[1], want[1].numpy())
+        assert np.array_equal(got[2], want[2].numpy().astype(bool))
+        assert got[2].any() and not got[2].all()
+    args = wide_segments(span + rows)
+    got, want = k5_model(*args, span, rows)[0], vote_in_order(*args)
+    assert np.array_equal(bits(got), bits(want)) and (got[1] != args[6]).all()
+
+
+def test_k5_arguments_match_the_entry_signature(monkeypatch):
+    """The arguments the wrapper hands the C entry are as many as its ctypes
+    signature types, its ints where it has ints."""
+    off, jref, s, e, Xref, kold, freq = (torch.from_numpy(a) for a in
+                                         edge_segments(0))
+    T, Nref = off.numel() - 1, Xref.shape[1]
+    span = port_device.span_chunks(Xref.shape[0])
+    window = port_device.window_buffers(e, T, Nref, span)
+    assert [w.shape for w in window] == [e.shape, (1, T), (1 + 2 * 3,)]
+    out = port_device.impute_vote_plain(off, jref, s, e, Xref, kold, freq)
+    monkeypatch.setattr(kernels, "stream", lambda dev: 0)
+    dev = type("Dev", (), {"index": 0})()
+    args = port_device.k5_arguments(dev, off, jref, s, e, Xref, kold, freq,
+                                    span, window, out)
+    sig = kernels._SIGNATURES["k5_impute_vote"]
+    assert len(args) == len(sig) == 18
+    ints = [i for i, a in enumerate(sig) if a is kernels._I]
+    assert [args[i] for i in ints] == [0, T, Nref, span]
 
 
 def site_fields(p_new, p_ref):
