@@ -27,22 +27,21 @@
 // the block then carries the run from chunk to chunk and never reads the
 // segments before it again.
 //
-// In the block one producer warp reads the run 32 segments a step, packs
-// those that weigh, in order, into a slot of ROWS, and has each packed
-// segment's CHUNK allele bytes, Xref[j][k0 : k0 + CHUNK], copied into the
-// slot by the copy engine (one bulk copy a row, cp.async.bulk, all issued
-// before any wait; rows that are not 16-byte aligned take cp.async or plain
-// loads). A ring of SLOTS slots with an mbarrier each way (filled: the
-// producer's lanes have written the slot and its bytes have landed;
-// emptied: the consumers have walked it) lets the producer pack and copy the
-// next slice while CONSUMERS warps walk this one. A chunk with more than ROWS
-// segments that weigh takes several slices, in order. A consumer thread takes
-// PER consecutive sites: it reads only shared memory, the packed (s, e) by
-// broadcast and its sites' allele bytes as one word, and where its sites share
-// a frame coordinate (eight sites a coordinate on a path typed at every 8th
-// site) one weight serves them all. Its dosages go out as two 16-byte stores,
-// its alleles and voted flags as a 4-byte store each; 0 / sum and sum / sum
-// need no division.
+// In the block one producer warp reads the run 32 segments a step, packs those
+// that weigh, in order, into a slot of ROWS, and has each packed segment's
+// CHUNK allele bytes, Xref[j][k0 : k0 + CHUNK], copied into the slot by the
+// copy engine (one bulk copy a row, cp.async.bulk, all issued before any wait;
+// the rows' pitch is a multiple of 16 bytes, as bulk copies need, whatever nref
+// is). A ring of SLOTS slots with an mbarrier each way (filled: the producer's
+// lanes have written the slot and its bytes have landed; emptied: the consumers
+// have walked it) lets the producer pack and copy the next slice while
+// CONSUMERS warps walk this one. A chunk with more than ROWS segments that
+// weigh takes several slices, in order. A consumer thread takes PER consecutive
+// sites: it reads only shared memory, the packed (s, e) by broadcast and its
+// sites' allele bytes as one word, and where its sites share a frame coordinate
+// (eight sites a coordinate on a path typed at every 8th site) one weight
+// serves them all. Its dosages go out as two 16-byte stores, its alleles and
+// voted flags as a 4-byte store each; 0 / sum and sum / sum need no division.
 //
 // Bound on the H100: bytes. The function must read one allele byte a covering
 // (segment, site) pair and write 10 bytes a (target, site): 8 of dosage, the
@@ -81,12 +80,6 @@ struct Slot {
 
 __device__ __forceinline__ unsigned smem(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
-}
-
-template <int VEC>
-__device__ __forceinline__ void copy_async(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem(dst)), "l"(src), "n"(VEC)
-               : "memory");
 }
 
 __device__ __forceinline__ void bar_init(unsigned long long* bar, unsigned count) {
@@ -200,34 +193,18 @@ __device__ long long pack_slot(Slot& sl, long long pos, long long end, int lo, i
 }
 
 // The producer warp: the copies of the slot's rows, Xref[j][k0 : k0 + CHUNK]
-// (cut at nref), into `rows`, and the warp's arrival on the slot's barrier.
-// VEC = 16: a bulk copy a row, lane m row m, the barrier told to expect their
-// bytes; VEC = 4: 4-byte cp.async, waited for; VEC = 1: through registers.
-template <int VEC>
+// (cut at nref, rounded up to 16 bytes: the rows' pitch is a multiple of 16),
+// into `rows`, a bulk copy a row, lane m row m, and the warp's arrival on the
+// slot's barrier, told to expect their bytes.
 __device__ __forceinline__ void issue_copies(const Slot& sl, unsigned char (*rows)[CHUNK],
                                              unsigned long long* bar,
                                              const unsigned char* __restrict__ Xref, int nref,
-                                             int k0, int lane) {
-  const int n = sl.n, width = min(CHUNK, nref - k0);
-  if constexpr (VEC == 16) {
-    if (lane == 0) bar_arrive_expect(bar, n * width);
-    __syncwarp();
-    if (lane < n) copy_bulk(rows[lane], Xref + (size_t)sl.j[lane] * nref + k0, width, bar);
-    if (lane != 0) bar_arrive(bar);
-  } else {
-    constexpr int PIECES = CHUNK / VEC;
-    for (int p = lane; p < n * PIECES; p += 32) {
-      const int m = p / PIECES, q = (p % PIECES) * VEC;
-      if (q >= width) continue;
-      const unsigned char* src = Xref + (size_t)sl.j[m] * nref + k0 + q;
-      if constexpr (VEC == 1)
-        rows[m][q] = __ldg(src);
-      else
-        copy_async<VEC>(&rows[m][q], src);
-    }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    bar_arrive(bar);
-  }
+                                             int pitch, int k0, int lane) {
+  const int n = sl.n, bytes = (min(CHUNK, nref - k0) + 15) & ~15;
+  if (lane == 0) bar_arrive_expect(bar, n * bytes);
+  __syncwarp();
+  if (lane < n) copy_bulk(rows[lane], Xref + (size_t)sl.j[lane] * pitch + k0, bytes, bar);
+  if (lane != 0) bar_arrive(bar);
 }
 
 // A consumer thread's PER sites: their frame coordinates, the weight sums
@@ -360,15 +337,15 @@ __device__ __forceinline__ void load_sites(const int* __restrict__ kold, int k, 
   for (int i = 0; i < PER; ++i) ko[i] = k + i < nref ? kold[k + i] : i ? ko[i - 1] : 0;
 }
 
-template <int VEC>
 __global__ void __launch_bounds__(THREADS, 10)
 k5_vote(const long long* __restrict__ seg_off, const int* __restrict__ seg_jref,
         const int* __restrict__ seg_s, const int* __restrict__ seg_e,
         const int* __restrict__ seg_emax, const long long* __restrict__ span_first,
         const int* __restrict__ chunk_lo, const int* __restrict__ chunk_hi, int span, int nt,
-        const unsigned char* __restrict__ Xref, int nref, const int* __restrict__ kold,
-        const double* __restrict__ ref_freq, double* __restrict__ dosage,
-        unsigned char* __restrict__ x, unsigned char* __restrict__ voted) {
+        const unsigned char* __restrict__ Xref, int nref, int pitch,
+        const int* __restrict__ kold, const double* __restrict__ ref_freq,
+        double* __restrict__ dosage, unsigned char* __restrict__ x,
+        unsigned char* __restrict__ voted) {
   __shared__ __align__(128) unsigned char rows[SLOTS][ROWS][CHUNK];
   __shared__ Slot slot[SLOTS];
   __shared__ unsigned long long filled[SLOTS], emptied[SLOTS];
@@ -411,7 +388,7 @@ k5_vote(const long long* __restrict__ seg_off, const int* __restrict__ seg_jref,
         const long long next = pack_slot(slot[i], pos, end, clo[c], chi[c], lsuf[c + 1], first,
                                          seg_jref, seg_s, seg_e, seg_emax, lane);
         if (first) scan = next;
-        issue_copies<VEC>(slot[i], rows[i], &filled[i], Xref, nref, (c0 + c) * CHUNK, lane);
+        issue_copies(slot[i], rows[i], &filled[i], Xref, nref, pitch, (c0 + c) * CHUNK, lane);
         if (!slot[i].more) {
           ++q;
           break;
@@ -547,23 +524,25 @@ extern "C" {
 // K5. seg_off (nt + 1,) int64 offsets of each target's segments; seg_jref,
 // seg_s, seg_e int32 donor, start and end (frame coordinates) of each segment,
 // sorted by (target, start); Xref (mref, nref) uint8 donor alleles in natural
-// order; kold (nref,) int32 the frame coordinate of each reference site;
-// ref_freq (nref,) f64; span the chunks of 256 sites a block, 1..32. Writes
-// dosage (nt, nref) f64 = score / sum of the weights (kold - s)(e - kold) > 0
-// over the target's segments with s < kold, or ref_freq where none weighs;
-// x = dosage > 0.5; voted = some segment weighs. On the way, the pre-pass
-// writes seg_emax (nseg,) int32, the running maximum of the ends within each
-// target; span_first (spans, nt) int64, the first segment of target t whose
-// seg_emax exceeds span p's least kold (seg_off[t + 1] if none); and bounds
-// (spans + 2 chunks,) int32, each span's least kold, then each chunk's least
-// and largest; spans = ceil(chunks / span), chunks = ceil(nref / 256).
+// order, 16-byte aligned, in rows of `pitch` bytes, a multiple of 16 (the bytes
+// past nref are read and not used); kold (nref,) int32 the frame coordinate of
+// each reference site; ref_freq (nref,) f64; span the chunks of 256 sites a
+// block, 1..32. Writes dosage (nt, nref) f64 = score / sum of the weights
+// (kold - s)(e - kold) > 0 over the target's segments with s < kold, or
+// ref_freq where none weighs; x = dosage > 0.5; voted = some segment weighs. On the way,
+// the pre-pass writes seg_emax (nseg,) int32, the running maximum of the ends
+// within each target; span_first (spans, nt) int64, the first segment of target
+// t whose seg_emax exceeds span p's least kold (seg_off[t + 1] if none); and
+// bounds (spans + 2 chunks,) int32, each span's least kold, then each chunk's
+// least and largest; spans = ceil(chunks / span), chunks = ceil(nref / 256).
 int k5_impute_vote(int device, const long long* seg_off, const int* seg_jref, const int* seg_s,
-                   const int* seg_e, int nt, const unsigned char* Xref, int nref, const int* kold,
-                   const double* ref_freq, int span, int* seg_emax, long long* span_first,
-                   int* bounds, double* dosage, unsigned char* x, unsigned char* voted,
-                   void* stream) {
+                   const int* seg_e, int nt, const unsigned char* Xref, int nref, int pitch,
+                   const int* kold, const double* ref_freq, int span, int* seg_emax,
+                   long long* span_first, int* bounds, double* dosage, unsigned char* x,
+                   unsigned char* voted, void* stream) {
   if (nt <= 0 || nref <= 0) return 0;
-  if (span < 1 || span > SPAN_MAX) return (int)cudaErrorInvalidValue;
+  if (span < 1 || span > SPAN_MAX || pitch < nref || pitch % 16 || (uintptr_t)Xref % 16)
+    return (int)cudaErrorInvalidValue;
   const int chunks = (nref + CHUNK - 1) / CHUNK;
   const long long spans = (chunks + span - 1) / span;
   if (spans * nt > INT_MAX) return (int)cudaErrorInvalidValue;
@@ -574,14 +553,9 @@ int k5_impute_vote(int device, const long long* seg_off, const int* seg_jref, co
   k5_bounds<<<(unsigned)spans, CHUNK, 0, s>>>(kold, nref, span, chunk_lo, chunk_hi, least);
   k5_window<<<(nt + WARPS - 1) / WARPS, CHUNK, 0, s>>>(seg_off, seg_e, nt, least, (int)spans,
                                                        seg_emax, span_first);
-  // 16-byte rows take bulk copies, 4-byte ones cp.async, others plain loads
-  const uintptr_t base = (uintptr_t)Xref;
-  const auto vote = nref % 16 == 0 && base % 16 == 0 ? k5_vote<16>
-                    : nref % 4 == 0 && base % 4 == 0 ? k5_vote<4>
-                                                     : k5_vote<1>;
-  vote<<<(unsigned)(spans * nt), THREADS, 0, s>>>(seg_off, seg_jref, seg_s, seg_e, seg_emax,
-                                                 span_first, chunk_lo, chunk_hi, span, nt, Xref,
-                                                 nref, kold, ref_freq, dosage, x, voted);
+  k5_vote<<<(unsigned)(spans * nt), THREADS, 0, s>>>(seg_off, seg_jref, seg_s, seg_e, seg_emax,
+                                                    span_first, chunk_lo, chunk_hi, span, nt, Xref,
+                                                    nref, pitch, kold, ref_freq, dosage, x, voted);
   return (int)cudaGetLastError();
 }
 

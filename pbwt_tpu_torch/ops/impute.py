@@ -112,11 +112,12 @@ def window_buffers(seg_e, T, Nref, span):
 
 def k5_arguments(dev, seg_off, seg_jref, seg_s, seg_e, Xref, kold, ref_freq,
                  span, window, out):
-    """The arguments of the C entry k5_impute_vote, in its order: window =
-    :func:`window_buffers`, out = (dosage, x, voted)."""
+    """The arguments of the C entry k5_impute_vote, in its order: Xref as
+    :func:`pitched_rows` lays it out, window = :func:`window_buffers`, out =
+    (dosage, x, voted)."""
     return (dev.index, seg_off.data_ptr(), seg_jref.data_ptr(),
             seg_s.data_ptr(), seg_e.data_ptr(), seg_off.numel() - 1,
-            Xref.data_ptr(), Xref.shape[1], kold.data_ptr(),
+            Xref.data_ptr(), Xref.shape[1], Xref.stride(0), kold.data_ptr(),
             ref_freq.data_ptr(), span, *(w.data_ptr() for w in window),
             *(o.data_ptr() for o in out), kernels.stream(dev))
 
@@ -140,7 +141,10 @@ def impute_vote(seg_off, seg_jref, seg_s, seg_e, Xref, kold, ref_freq):
     i32, u8, f64 = torch.int32, torch.uint8, torch.float64
     dev = kernels.typed_cuda_tensors(
         (seg_off, torch.int64), (seg_jref, i32), (seg_s, i32), (seg_e, i32),
-        (Xref, u8), (kold, i32), (ref_freq, f64))
+        (kold, i32), (ref_freq, f64))
+    if Xref.device != dev or Xref.dtype != u8 or Xref.dim() != 2:
+        raise ValueError(f"impute_vote: Xref must be a 2-D uint8 tensor on "
+                         f"{dev}, got {Xref.dtype} on {Xref.device}")
     T, (Mref, Nref) = seg_off.numel() - 1, Xref.shape
     nseg = seg_jref.numel()
     if (seg_s.numel() != nseg or seg_e.numel() != nseg
@@ -151,17 +155,35 @@ def impute_vote(seg_off, seg_jref, seg_s, seg_e, Xref, kold, ref_freq):
     if T and Nref:
         span = span_chunks(Mref)
         kernels.launch("k5_impute_vote", *k5_arguments(
-            dev, seg_off, seg_jref, seg_s, seg_e, Xref, kold, ref_freq, span,
-            window_buffers(seg_e, T, Nref, span), out))
+            dev, seg_off, seg_jref, seg_s, seg_e, pitched_rows(Xref), kold,
+            ref_freq, span, window_buffers(seg_e, T, Nref, span), out))
     return out
+
+
+def pitched_rows(Xref: torch.Tensor) -> torch.Tensor:
+    """The (Mref, Nref) uint8 rows as K5 reads them: 16-byte aligned, each
+    row ``Xref.stride(0)`` bytes from the last, a multiple of 16 whatever
+    Nref is (the kernel bulk-copies a row's chunk rounded up to 16 bytes).
+    Xref itself where it is laid out so, else a copy into rows of Nref
+    rounded up to 16, the bytes past Nref zero."""
+    (Mref, Nref), (rs, cs) = Xref.shape, Xref.stride()
+    pitch = -(-Nref // 16) * 16
+    held = Xref.untyped_storage().nbytes() - Xref.storage_offset()
+    if ((cs == 1 or Nref == 1) and rs % 16 == 0 and rs >= pitch
+            and Xref.data_ptr() % 16 == 0 and held >= (Mref - 1) * rs + pitch):
+        return Xref
+    out = torch.empty((Mref, pitch), dtype=torch.uint8, device=Xref.device)
+    out[:, Nref:].zero_()
+    return out[:, :Nref].copy_(Xref)
 
 
 def reference_rows(Xcols: np.ndarray, device=None) -> torch.Tensor:
     """Site-major (Nref, Mref) donor alleles -> the (Mref, Nref) uint8 rows
-    :func:`impute_dosages_device` reads, transposed on the device."""
+    :func:`impute_dosages_device` reads, transposed on the device into
+    :func:`pitched_rows`' layout."""
     dev = resolve_device(device)
-    return torch.from_numpy(np.ascontiguousarray(Xcols, np.uint8)).to(dev) \
-        .t().contiguous()
+    return pitched_rows(torch.from_numpy(
+        np.ascontiguousarray(Xcols, np.uint8)).to(dev).t())
 
 
 def segment_columns(segments: np.ndarray, n_targets: int):

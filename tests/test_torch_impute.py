@@ -15,7 +15,6 @@ import pbwt_tpu.core.pbwt as ref_pbwt
 import pbwt_tpu.core.registry as ref_registry
 import pbwt_tpu.utils as ref_utils
 from pbwt_tpu.ops import impute_jax
-from chip_smoke import vote_in_order, wide_segments
 import pbwt_tpu_torch.algos.impute as port_impute
 import pbwt_tpu_torch.core.native as port_native
 import pbwt_tpu_torch.core.pbwt as port_pbwt
@@ -175,6 +174,42 @@ def edge_segments(seed, T=5, N=700, heavy=60):
     return (off, rng.randint(0, 30, size=len(tg)).astype(np.int32),
             s[order].astype(np.int32), e[order].astype(np.int32), Xref,
             kold.astype(np.int32), rng.random_sample(N))
+
+
+def vote_in_order(off, jref, s, e, Xref, kold, freq):
+    """The vote of the host's loop: each (target, site) adds its covering
+    segments in segment order, in f64."""
+    T, N = len(off) - 1, Xref.shape[1]
+    dosage = np.empty((T, N))
+    for t, k in np.ndindex(T, N):
+        ko, ssum, score = int(kold[k]), 0.0, 0.0
+        for i in range(off[t], off[t + 1]):
+            w = float(ko - int(s[i])) * float(int(e[i]) - ko)
+            if s[i] < ko and w > 0.0:
+                ssum += w
+                if Xref[jref[i], k]:
+                    score += w
+        dosage[t, k] = freq[k] if ssum == 0.0 else score / ssum
+    return dosage
+
+
+def wide_segments(seed, N=300):
+    """Segments whose weights leave K5's integer regime: target 0 starts in
+    it (short segments) and leaves it in a later slice (ends near 2^30);
+    target 1 has sums past 2^53 (starts near -2^30), where the order of the
+    f64 additions shows."""
+    rng = np.random.RandomState(seed)
+    kold = np.arange(N, dtype=np.int32)
+    s0 = np.sort(rng.randint(0, 100, size=9))
+    e0 = np.where(np.arange(9) < 6, s0 + rng.randint(2, 40, size=9),
+                  (1 << 30) - rng.randint(0, 1000, size=9))
+    s1 = np.sort(-(1 << 30) + rng.randint(0, 1 << 20, size=12))
+    e1 = (1 << 30) - rng.randint(0, 1 << 20, size=12)
+    s, e = (np.concatenate(a).astype(np.int32) for a in ((s0, s1), (e0, e1)))
+    Xref = (rng.random_sample((10, N)) < 0.5).astype(np.uint8)
+    return (np.array([0, 9, 21], np.int64),
+            rng.randint(0, 10, size=21).astype(np.int32), s, e, Xref, kold,
+            rng.random_sample(N))
 
 
 def window_loop(off, e, kold, span):
@@ -353,9 +388,36 @@ def test_k5_arguments_match_the_entry_signature(monkeypatch):
     args = port_device.k5_arguments(dev, off, jref, s, e, Xref, kold, freq,
                                     span, window, out)
     sig = kernels._SIGNATURES["k5_impute_vote"]
-    assert len(args) == len(sig) == 18
+    assert len(args) == len(sig) == 19
     ints = [i for i, a in enumerate(sig) if a is kernels._I]
-    assert [args[i] for i in ints] == [0, T, Nref, span]
+    assert [args[i] for i in ints] == [0, T, Nref, Nref, span]
+
+
+@pytest.mark.parametrize("Nref", [1, 15, 16, 37, 256, 4_999])
+def test_pitched_rows_layout(Nref):
+    """K5 reads the donors' rows 16-byte aligned in a pitch that is a
+    multiple of 16 bytes: reference_rows lays them out so from site-major
+    columns; pitched_rows keeps rows already so (a view of wider rows
+    included) and copies any others, with the same values."""
+    rng = np.random.RandomState(Nref)
+    X = torch.from_numpy((rng.random_sample((9, Nref)) < 0.4)
+                         .astype(np.uint8))
+    pitch = -(-Nref // 16) * 16
+    for rows in (port_device.reference_rows(
+            np.ascontiguousarray(X.numpy().T), device="cpu"),
+            port_device.pitched_rows(X)):
+        assert torch.equal(rows, X) and rows.stride() == (pitch, 1)
+        assert rows.data_ptr() % 16 == 0
+        assert port_device.pitched_rows(rows).data_ptr() == rows.data_ptr()
+    wide = torch.zeros((9, pitch + 32), dtype=torch.uint8)
+    view = wide[:, 16:16 + Nref]
+    view.copy_(X)
+    assert port_device.pitched_rows(view).data_ptr() == view.data_ptr()
+    # a row's last chunk rounded up to 16 bytes would pass the storage's end
+    tight = torch.zeros(8 * (pitch + 32) + Nref, dtype=torch.uint8)
+    tight = tight.as_strided((9, Nref), (pitch + 32, 1))
+    if Nref % 16:
+        assert port_device.pitched_rows(tight).data_ptr() != tight.data_ptr()
 
 
 def site_fields(p_new, p_ref):

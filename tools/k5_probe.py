@@ -29,9 +29,7 @@ With no argument, on the card, one JSON line each:
            12 blocks an SM, not 10); never_same (no weight shared by the
            sites of one frame coordinate); f64_walk (every sum in f64, never
            the integer regime); always_divide (a division at every site);
-           cp_async_waited (16-byte cp.async that the producer waits for, in
-           place of a bulk copy a row); plain_loads (the copies through
-           registers, as for rows that are not 4-byte aligned); and cuts,
+           and cuts,
            whose results are wrong and only their times mean anything:
            prepass_only (k5_bounds and k5_window alone), no_walk (the run
            packed and its rows copied, no walk), no_copies (the walk reads a
@@ -41,6 +39,19 @@ With no argument, on the card, one JSON line each:
            (target, chunk), every block reading all of its target's
            segments, a global load a covering pair), held like the others
            against the twin bit for bit;
+  span     the package's source at 4, 8, 16 and 32 chunks a block (the
+           wrapper's SPAN_L2_BYTES halved, as it is, doubled and
+           quadrupled: a slab of Mref x span x 256 bytes), each held
+           against the twin bit for bit;
+  nref     at 16,383 sites (the path's inputs without their last site, in
+           rows of a 16,384-byte pitch, as reference_rows lays them out):
+           the package's source and the earlier design, held against the
+           twin bit for bit; impute_vote on contiguous rows of 16,383
+           bytes, which it first copies to that pitch; and the rows made
+           from site-major columns on the card at 16,383 and 16,384 sites,
+           into the pitch (pitched_rows) and contiguous; and contiguous
+           rows of 16,383 laid out in the pitch by pitched_rows (copy_), by
+           torch.cat with a zero column block and by F.pad;
   write_floor  torch's fill_ of the three outputs (dosage, x, voted): the
            card's rate for K5's writes alone;
   wrapper  impute_vote as the path calls it, and the pre-pass's plain twin
@@ -150,11 +161,9 @@ extern "C" int k5_old(int device, const long long* seg_off, const int* seg_jref,
 WALK = "walk(slot[i], rows[i], tid, same, bound, st);"
 NO_WALK = ((WALK, "(void)0;", 1),)
 ROW_WORD = "const unsigned a = *reinterpret_cast<const unsigned*>(&rows[m][PER * u]);"
-NO_COPIES = (("    if (lane == 0) bar_arrive_expect(bar, n * width);",
-              "    if (lane == 0) bar_arrive_expect(bar, 0);", 1),
-             ("    if (lane < n) copy_bulk(", "    if (false) copy_bulk(", 1),
-             ("        rows[m][q] = __ldg(src);", "        (void)src;", 1),
-             ("        copy_async<VEC>(&rows[m][q], src);", "        (void)src;", 1),
+NO_COPIES = (("  if (lane == 0) bar_arrive_expect(bar, n * bytes);",
+              "  if (lane == 0) bar_arrive_expect(bar, 0);", 1),
+             ("  if (lane < n) copy_bulk(", "  if (false) copy_bulk(", 1),
              (ROW_WORD, "const unsigned a = 0x01000100u ^ (unsigned)m;", 2),
              ("if (rows[m][PER * u + i])", "if ((m ^ i) & 1)", 1))
 NO_PACK = (("  int n = 0;\n  bool more = false;",
@@ -188,15 +197,8 @@ VARIANTS = {
     "always_divide": ((("sc == 0.0 ? 0.0 : sc == ss ? 1.0 :",
                         "sc == 0.0 ? __ddiv_rn(sc, ss) : sc == ss ? "
                         "__ddiv_rn(sc, ss) :", 1),), False),
-    "cp_async_waited": ((("if constexpr (VEC == 16) {",
-                           "if constexpr (VEC == 32) {", 1),), False),
-    "plain_loads": ((("nref % 16 == 0 && base % 16 == 0 ? k5_vote<16>",
-                      "false ? k5_vote<16>", 1),
-                     ("nref % 4 == 0 && base % 4 == 0 ? k5_vote<4>",
-                      "false ? k5_vote<4>", 1)), False),
-    "prepass_only": ((("  // 16-byte rows take bulk copies",
-                       "  return (int)cudaGetLastError();\n"
-                       "  // 16-byte rows take bulk copies", 1),), True),
+    "prepass_only": ((("  k5_vote<<<", "  return (int)cudaGetLastError();\n"
+                       "  k5_vote<<<", 1),), True),
     "no_walk": (NO_WALK, True),
     "no_copies": (NO_COPIES, True),
     "window_only": (NO_WALK + NO_COPIES, True),
@@ -305,12 +307,35 @@ def build(nvcc, kernels, tmp):
             sys.exit(f"{name}: {out}")
         for part in out.split("Compiling entry function '")[1:]:
             fn = part.split("'", 1)[0]
-            if "k5_vote" in fn and (name in ("as_is", "old") or "ILi16E" in fn):
+            if "k5_vote" in fn:
                 info = [ln.split(":", 1)[-1].strip() for ln in part.splitlines()
                         if "spill" in ln or "Used" in ln]
                 say("ptxas", design=name, function=fn[-40:],
                     info="; ".join(info))
     return libs
+
+
+def entry(lib, name):
+    """The C entry of a built copy: k5_impute_vote, or the earlier design's
+    k5_old."""
+    from pbwt_tpu_torch.ops import kernels
+    if name == "old":
+        fn = ctypes.CDLL(lib).k5_old
+        fn.argtypes = [ctypes.c_int, *[ctypes.c_void_p] * 4, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 6]
+    else:
+        fn = ctypes.CDLL(lib).k5_impute_vote
+        fn.argtypes = kernels._SIGNATURES["k5_impute_vote"]
+    return fn
+
+
+def runner(torch, fn, call):
+    """A call of fn that must return 0, made once and synchronised."""
+    def run():
+        assert fn(*call) == 0
+    run()
+    torch.cuda.synchronize()
+    return run
 
 
 def probe(tmp):
@@ -323,39 +348,37 @@ def probe(tmp):
     libs = build(kernels.nvcc(), kernels, tmp)
     dev = torch.device("cuda", 0)
     card = card_name()
+    T = cs.IMPUTE_T
     segments, kold, Xref, freq = path_inputs(cs.IMPUTE_NREF)
-    off, jref, s, e, ko, fr = impute.upload_columns(
-        segments, cs.IMPUTE_T, kold, freq, dev)
-    X = torch.from_numpy(Xref).to(dev)
-    say("inputs", T=cs.IMPUTE_T, Mref=X.shape[0], Nref=X.shape[1],
+    off, jref, s, e, ko, fr = impute.upload_columns(segments, T, kold, freq,
+                                                    dev)
+    X = impute.pitched_rows(torch.from_numpy(Xref).to(dev))
+    say("inputs", T=T, Mref=X.shape[0], Nref=X.shape[1],
         segments=jref.numel(), covering_pairs=covering_pairs(
             np, s.cpu().numpy(), e.cpu().numpy(), kold), card=card)
+
+    def calls(name, X, ko, fr, span):
+        """(the entry's arguments, out, window) at these rows and sites."""
+        nref = X.shape[1]
+        out = (torch.empty((T, nref), dtype=torch.float64, device=dev),
+               *(torch.empty((T, nref), dtype=torch.uint8, device=dev)
+                 for _ in range(2)))
+        if name == "old":   # rows of stride nref
+            return (dev.index, off.data_ptr(), jref.data_ptr(), s.data_ptr(),
+                    e.data_ptr(), T, X.data_ptr(), nref, ko.data_ptr(),
+                    fr.data_ptr(), *(o.data_ptr() for o in out),
+                    kernels.stream(dev)), out, None
+        window = impute.window_buffers(e, T, nref, span)
+        return impute.k5_arguments(dev, off, jref, s, e, X, ko, fr, span,
+                                   window, out), out, window
+
     args = (off, jref, s, e, X, ko, fr)
     want = impute.impute_vote_plain(*args)
     span = impute.span_chunks(X.shape[0])
     twin = impute.vote_window(off, e, ko, span)
     for name in ("old", *VARIANTS):
-        out = tuple(torch.empty_like(w) for w in want)
-        fn = getattr(ctypes.CDLL(libs[name]), "k5_old" if name == "old"
-                     else "k5_impute_vote")
-        if name == "old":
-            fn.argtypes = [ctypes.c_int, *[ctypes.c_void_p] * 4, ctypes.c_int,
-                           ctypes.c_void_p, ctypes.c_int,
-                           *[ctypes.c_void_p] * 6]
-            call = (dev.index, off.data_ptr(), jref.data_ptr(), s.data_ptr(),
-                    e.data_ptr(), cs.IMPUTE_T, X.data_ptr(), X.shape[1],
-                    ko.data_ptr(), fr.data_ptr(), *(o.data_ptr() for o in out),
-                    kernels.stream(dev))
-        else:
-            fn.argtypes = kernels._SIGNATURES["k5_impute_vote"]
-            window = impute.window_buffers(e, cs.IMPUTE_T, X.shape[1], span)
-            call = impute.k5_arguments(dev, off, jref, s, e, X, ko, fr, span,
-                                       window, out)
-
-        def run():
-            assert fn(*call) == 0
-        run()
-        torch.cuda.synchronize()
+        call, out, window = calls(name, X, ko, fr, span)
+        run = runner(torch, entry(libs[name], name), call)
         cut = name != "old" and VARIANTS[name][1]
         same = cs.vote_equal(torch, out, want)
         if not (same or cut):
@@ -364,6 +387,55 @@ def probe(tmp):
             sys.exit("K5's pre-pass differs from vote_window")
         say("variant", name=name, cut=cut, bits=same,
             ms=f"{cs.cuda_ms(torch, run, 10):.4f}", card=card)
+    as_is = entry(libs["as_is"], "as_is")
+    for sp in (4, 8, 16, 32):
+        call, out, _ = calls("as_is", X, ko, fr, sp)
+        run = runner(torch, as_is, call)
+        if not cs.vote_equal(torch, out, want):
+            sys.exit(f"K5 at a span of {sp} chunks differs from the twin")
+        say("span", span_chunks=sp, slab_mb=X.shape[0] * sp * 256 / 1e6,
+            wrapper_span=sp == span, ms=f"{cs.cuda_ms(torch, run, 10):.4f}",
+            card=card)
+    # the path's inputs without their last site: a site count that is not
+    # a multiple of 16, in the pitch of reference_rows
+    n = cs.IMPUTE_NREF - 1
+    cut_args = (off, jref, s, e, X[:, :n], ko[:n].contiguous(),
+                fr[:n].contiguous())
+    want_cut = impute.impute_vote_plain(*cut_args)
+    assert impute.pitched_rows(cut_args[4]).data_ptr() == X.data_ptr()
+    times = {}
+    for name, rows in (("as_is", cut_args[4]), ("old", X[:, :n].contiguous())):
+        call, out, _ = calls(name, rows, *cut_args[5:], span)
+        run = runner(torch, entry(libs[name], name), call)
+        if not cs.vote_equal(torch, out, want_cut):
+            sys.exit(f"{name} at {n} sites differs from the twin")
+        times[f"{name}_ms"] = f"{cs.cuda_ms(torch, run, 10):.4f}"
+    contiguous = (*cut_args[:4], X[:, :n].contiguous(), *cut_args[5:])
+    check = impute.impute_vote(*contiguous)
+    if not cs.vote_equal(torch, check, want_cut):
+        sys.exit(f"impute_vote on contiguous rows of {n} differs from the twin")
+    # the rows from site-major columns on the card, as reference_rows makes
+    # them: into the pitch, and (the layout before the pitch) contiguous
+    for m in (n, cs.IMPUTE_NREF):
+        cols = torch.from_numpy(np.ascontiguousarray(Xref[:, :m].T)).to(dev)
+        times[f"pitched_rows_of_columns_{m}_ms"] = f"{cs.cuda_ms(torch, lambda: impute.pitched_rows(cols.t()), 10):.4f}"
+        times[f"contiguous_of_columns_{m}_ms"] = f"{cs.cuda_ms(torch, lambda: cols.t().contiguous(), 10):.4f}"
+        del cols
+    # ways to lay contiguous rows of n bytes out in the pitch
+    rows = X[:, :n].contiguous()
+    pad = torch.zeros((rows.shape[0], X.stride(0) - n), dtype=torch.uint8,
+                      device=dev)
+    for way, fn in (("copy", lambda: impute.pitched_rows(rows)),
+                    ("cat", lambda: torch.cat([rows, pad], 1)),
+                    ("pad", lambda: torch.nn.functional.pad(
+                        rows, (0, X.stride(0) - n)))):
+        times[f"pitch_by_{way}_ms"] = f"{cs.cuda_ms(torch, fn, 10):.4f}"
+    del rows, pad
+    say("nref", Nref=n, pitch=X.stride(0), covering_pairs=covering_pairs(
+        np, s.cpu().numpy(), e.cpu().numpy(), kold[:n]), **times,
+        wrapper_pitched_ms=f"{cs.cuda_ms(torch, lambda: impute.impute_vote(*cut_args), 10):.4f}",
+        wrapper_contiguous_ms=f"{cs.cuda_ms(torch, lambda: impute.impute_vote(*contiguous), 10):.4f}",
+        card=card)
     outs = tuple(torch.empty_like(w) for w in want)
     say("write_floor", bytes=sum(o.numel() * o.element_size() for o in outs),
         fill_ms=f"{cs.cuda_ms(torch, lambda: [o.fill_(1) for o in outs], 10):.4f}",
