@@ -9,7 +9,9 @@ engine; ``PBWT_TORCH_DEVICE`` decides (:mod:`pbwt_tpu_torch.ops`)."""
 
 from __future__ import annotations
 
+import os
 import sys
+import time
 
 from .ops import NoDeviceError
 
@@ -17,6 +19,8 @@ HELP = """Program: pbwt (PyTorch/CUDA port)
 Usage: python -m pbwt_tpu_torch [ -<command> [options]* ]+
 Commands:
   -log <file>               log file; '-' for stderr
+  -profile <dir>            trace the rest (torch.profiler) into <dir>; log
+                            each command's wall time
   -check                    do various checks
   -stats                    print stats depending on commands; writes to stdout
   -read <file>              read pbwt file; '-' for stdin
@@ -44,14 +48,15 @@ Every other command of pbwt is served by: python -m pbwt_tpu
 
 # the commands of this port and the arguments each takes (-referenceImpute
 # takes two optional ones more, -paint and -paintSparse three)
-_NARGS = {"-check": 0, "-stats": 0, "-log": 1, "-read": 1, "-readAll": 1,
-          "-readVcfGT": 1, "-readDosage": 1, "-write": 1, "-writeDosage": 1,
-          "-writeAll": 1, "-haps": 1, "-writeGen": 1, "-writeVcf": 1,
+_NARGS = {"-check": 0, "-stats": 0, "-log": 1, "-profile": 1, "-read": 1,
+          "-readAll": 1, "-readVcfGT": 1, "-readDosage": 1, "-write": 1,
+          "-writeDosage": 1, "-writeAll": 1, "-haps": 1, "-writeGen": 1, "-writeVcf": 1,
           "-writeVcfGz": 1, "-writeBcf": 1, "-writeBcfGz": 1,
           "-matchIndexed": 1, "-matchDynamic": 1, "-referenceImpute": 1,
           "-fitAlphaBeta": 1, "-llCopyModel": 2, "-maxWithin": 0,
           "-longWithin": 1, "-imputeMissing": 0, "-paint": 1,
           "-paintSparse": 1}
+TRACE_FILE = "pbwt_torch_trace.json"   # -profile's trace in its directory
 _VCF_MODES = {"-writeVcf": "w", "-writeVcfGz": "wz", "-writeBcf": "wbu",
               "-writeBcfGz": "wb"}
 
@@ -93,9 +98,7 @@ def main(argv: list[str] | None = None) -> int:
 
 def _main(argv: list[str] | None) -> int:
     from . import utils
-    from .algos import impute, likelihood, match, paint
     from .core import registry
-    from .io import pbwtfile, textformats, vcf
 
     argv = list(sys.argv[1:] if argv is None else argv)
     registry.init()
@@ -104,8 +107,50 @@ def _main(argv: list[str] | None) -> int:
     if not argv:
         sys.stderr.write(HELP)
         return 0
-    p = None
     utils.time_update()
+    profile: dict = {}
+    try:
+        _pipeline(argv, profile)
+    finally:
+        if profile:
+            profile["prof"].stop()
+    if profile:
+        profile["prof"].export_chrome_trace(
+            os.path.join(profile["dir"], TRACE_FILE))
+    return 0
+
+
+def _wall(t0: float) -> float:
+    """Seconds since t0, the card's queued work finished first."""
+    import torch
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _start_profile(out_dir: str):
+    """torch.profiler over the CPU and, with a card, CUDA, started."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    os.makedirs(out_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _pipeline(argv: list[str], profile: dict) -> None:
+    """Run the commands of argv on one current PBWT. -profile puts its
+    started profiler and directory into ``profile``."""
+    from . import utils
+    from .algos import impute, likelihood, match, paint
+    from .core import registry
+    from .io import pbwtfile, textformats, vcf
+
+    p = None
+    t_cmd = None
     while argv:
         cmd = argv[0]
         if not cmd.startswith("-"):
@@ -124,6 +169,12 @@ def _main(argv: list[str] | None) -> int:
             registry.is_stats = True
         elif cmd == "-log":
             utils.set_log_file(sys.stderr if arg == "-" else open(arg, "w"))
+        elif cmd == "-profile":
+            # the trace covers the rest of the pipeline; a wall line a
+            # command (pbwt_tpu/cli.py:175-185, 556-559)
+            if not profile:
+                profile.update(prof=_start_profile(arg), dir=arg)
+            t_cmd = time.perf_counter()
         elif cmd == "-read":
             fp = _open(arg, "rb")
             p = pbwtfile.read_pbwt(fp)
@@ -200,8 +251,10 @@ def _main(argv: list[str] | None) -> int:
             match.match_sequences_dynamic(p, fp)
             _close(fp, arg)
         argv = argv[1 + nargs:]
+        if t_cmd is not None:
+            utils.log(f"wall\t{_wall(t_cmd):.3f} s\t{cmd}")
+            t_cmd = time.perf_counter()
         utils.time_update()
-    return 0
 
 
 if __name__ == "__main__":

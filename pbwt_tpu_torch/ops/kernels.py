@@ -11,7 +11,9 @@ Every pointer and the stream go to C as ``c_void_p`` (a bare Python int
 would be cut to 32 bits). Each entry point returns ``cudaGetLastError()``
 after its launches, and :func:`launch` raises when that is not 0: a refused
 launch never runs, and a later ``torch.cuda.synchronize()`` would not say so.
-:data:`LAUNCHES` counts, per kernel, the calls that launched it.
+:data:`LAUNCHES` counts, per kernel, the calls that launched it; each
+launch is a ``torch.profiler.record_function`` span of the kernel's name, so
+a trace (``-profile``) names the hand-written kernels.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ _SIGNATURES = {
                        _P, _P, _P, _P, _P],
     "k6_paint_accumulate": [_I, _I, _I, _I, _P, _P, _L, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _P, _P, _P, _P],
+    "k7_fm_step": [_I, _P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P],
 }
 
 # kernel name -> number of wrapper calls that launched it
@@ -173,7 +176,8 @@ def launch(name: str, *args) -> None:
         raise TypeError(f"pbwt_tpu_torch: {name} takes "
                         f"{len(_SIGNATURES[name])} arguments, not {len(args)}")
     LAUNCHES[name] += 1
-    err = fn(*args)
+    with torch.profiler.record_function(name):
+        err = fn(*args)
     if err != 0:
         raise RuntimeError(f"pbwt_tpu_torch: {name} failed with cudaError_t "
                            f"{err}")

@@ -5,6 +5,7 @@ for the copy model's device route), and neither jax nor any module of the
 JAX package imported. A subprocess, because this test process imports both
 (tests/conftest.py)."""
 
+import json
 import os
 import re
 import subprocess
@@ -116,6 +117,32 @@ def test_cli_match_equals_host(files, cmd, budget):
     assert ref.returncode == 0, ref.stderr.decode()
     assert port.stdout.count(b"\n") > 12
     assert port.stdout == ref.stdout
+
+
+def test_cli_profile_keeps_stdout_and_writes_a_trace(files, tmp_path):
+    """-profile <dir>: stdout byte-identical to the run without it, a wall
+    line a command in the log (pbwt_tpu/cli.py:556-559's shape), and a
+    torch.profiler trace in dir; a trace that cannot be written fails the
+    run."""
+    p, q = files
+    env = {"PBWT_TORCH_DEVICE": "cpu", "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "1"}
+    args = ["-read", p, "-matchDynamic", q]
+    plain = _run([sys.executable, "-c", RUN_PORT, *args], env)
+    out = tmp_path / "prof"
+    prof = _run([sys.executable, "-c", RUN_PORT, "-profile", str(out),
+                 *args], env)
+    assert plain.returncode == 0 == prof.returncode, prof.stderr.decode()
+    assert prof.stdout == plain.stdout and plain.stdout.count(b"\n") > 12
+    walls = re.findall(r"^wall\t\d+\.\d{3} s\t(\S+)$",
+                       prof.stderr.decode(), re.MULTILINE)
+    assert walls == ["-profile", "-read", "-matchDynamic"]
+    with open(out / "pbwt_torch_trace.json") as f:
+        assert json.load(f)["traceEvents"]
+    (tmp_path / "file").write_text("")
+    bad = _run([sys.executable, "-c", RUN_PORT, "-profile",
+                str(tmp_path / "file"), *args], env)
+    assert bad.returncode != 0 and bad.stdout == b""
 
 
 def test_cli_device_route_needs_a_card_or_the_cpu_named(files):
