@@ -10,12 +10,13 @@ tables are accumulated by kernel K6 on the device engine when
 :func:`pbwt_tpu_torch.ops.device_requested` says so, else by the host C
 pass, or by the reference's loop without the C runtime (and always for
 ``outputlocal``). K6 and the C pass give the same bits. -paintSparse takes
-the per-individual C pass and writes its five streams with Python's gzip.
+the per-individual C pass and writes its five streams through zlib as
+zlib's ``gzopen("w6")`` does (:class:`_GzipStream`), byte for byte.
 """
 
 from __future__ import annotations
 
-import gzip
+import zlib
 
 import numpy as np
 
@@ -231,6 +232,26 @@ def _write_tables(file_root: str, counts, totlengths, counts2, counts3,
         f.close()
 
 
+class _GzipStream:
+    """A text file written as gzip the way zlib's ``gzopen(path, "w6")``
+    writes it (the JAX package's C runtime): a deflate stream at level 6
+    in a gzip wrapper of flags 0, mtime 0 and OS 3, so the bytes are the
+    same from run to run and equal the JAX package's. Python's
+    ``gzip.open`` would put the file name, the time and OS 255 in the
+    header."""
+
+    def __init__(self, path: str):
+        self._f = open(path, "wb")
+        self._z = zlib.compressobj(6, zlib.DEFLATED, 31)
+
+    def write(self, text: str) -> None:
+        self._f.write(self._z.compress(text.encode()))
+
+    def close(self) -> None:
+        self._f.write(self._z.flush())
+        self._f.close()
+
+
 def paint_ancestry_matrix_sparse(p: PBWT, file_root: str,
                                  chunksperregion: int = 100, ploidy: int = 2,
                                  cutoff: float = 0) -> None:
@@ -241,16 +262,9 @@ def paint_ancestry_matrix_sparse(p: PBWT, file_root: str,
     map_ih = np.arange(p.M) // ploidy
     nregions = np.zeros(n_inds)
 
-    # compresslevel 6 = zlib default, matching the reference's gzopen "w"
-    # (python's default level 9 is ~5x slower for these numeric tables)
-    fr = gzip.open(f"{file_root}.nregions.s.out.gz", "wt", compresslevel=6)
-    fc = gzip.open(f"{file_root}.chunkcounts.s.out.gz", "wt", compresslevel=6)
-    fl = gzip.open(f"{file_root}.chunklengths.s.out.gz", "wt",
-                   compresslevel=6)
-    fc2 = gzip.open(f"{file_root}.regionsquaredchunkcounts.s.out.gz", "wt",
-                    compresslevel=6)
-    fc3 = gzip.open(f"{file_root}.regionchunkcounts.s.out.gz", "wt",
-                    compresslevel=6)
+    fr, fc, fl, fc2, fc3 = (_GzipStream(f"{file_root}.{t}.s.out.gz") for t in (
+        "nregions", "chunkcounts", "chunklengths",
+        "regionsquaredchunkcounts", "regionchunkcounts"))
 
     def print_all(ii, t_counts, t_counts2, t_counts3, t_totlengths, nreg):
         nz = np.flatnonzero(t_counts)

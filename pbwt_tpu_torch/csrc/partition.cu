@@ -18,7 +18,12 @@
 // update of pbwtCursorForwardsAD (pbwtCore.c:485-508) as two segmented running
 // maxima seeded with k+1 followed by d[0] = k+2, the exclusive zero-rank table
 // u and the zero count. It reads and writes the trajectory tables themselves:
-// site k reads A[k] and D[k-1] and writes A[k+1], D[k], U[k], C[k].
+// site k reads A[k] and D[k-1] and writes A[k+1], D[k], U[k], C[k]. Its entry
+// k2_partition_ad_columns takes the keys from packed sorted columns instead
+// (the sharded build's replicated divergence, pbwt_tpu/parallel/sharding.py
+// :79-91): site r's key of row i is bit i % 32 of word i / 32 of column r, so
+// nothing is gathered through a; (a, d) ping-pong through two planes and no
+// table, count or word is written.
 //
 // Bound on the H100: the sites are a chain (site k+1 reads the order that site
 // k scattered), and every plane of one site (0.3-3 MB at 65k-100k rows) lives
@@ -287,10 +292,14 @@ struct Params {
   size_t w_stride;
   const int* w_nat;
   size_t wn_stride;
-  int* u_out;  // K2: table of exclusive zero ranks, rows a_stride apart
+  int* u_out;  // K2: table of exclusive zero ranks, rows a_stride apart, or null
+  // K2 from packed sorted columns: site r's keys are the bits of the keys_rw
+  // words at keys + r * keys_rw (in place of words)
+  const unsigned* keys;
+  int keys_rw;
   unsigned* ycols;  // K1: packed sorted columns, rw words a site
   int rw;
-  int* counts;
+  int* counts;  // zero counts, a site each, or null (K2 from packed columns)
   int* scratch;
 };
 
@@ -304,13 +313,20 @@ struct Tile {
 template <bool AD, int ITEMS>
 __device__ __forceinline__ void load_tile(Tile<AD, ITEMS>& t, int j, int n, int s, int kk,
                                           const int* a_src, const int* d_src, const int* w_src,
-                                          const int* w_gat) {
+                                          const int* w_gat, const unsigned* keys) {
   t.i0 = j * (THREADS * ITEMS) + threadIdx.x * ITEMS;
   t.nvalid = min(max(n - t.i0, 0), ITEMS);
   load_rows<ITEMS>(a_src, t.i0, t.nvalid, t.a);
   if constexpr (AD) {
     load_rows<ITEMS>(d_src, t.i0, t.nvalid, t.d);
     if (t.i0 == 0 && t.nvalid > 0) t.d[0] = max(t.d[0], kk + 1);
+  }
+  if (keys) {
+    // the ITEMS rows lie in one word: i0 is a multiple of ITEMS, which
+    // divides 32; the column was written before the launch
+    const unsigned word = t.nvalid > 0 ? __ldg(keys + (t.i0 >> 5)) : 0u;
+    t.keys = (word >> (t.i0 & 31)) & ((1u << t.nvalid) - 1u);
+    return;
   }
   if (w_gat) {
 #pragma unroll
@@ -382,12 +398,13 @@ __global__ void __launch_bounds__(THREADS) partition_sites(const Params p) {
     const int* w_gat = (p.w_nat && (!w_src || s == 0))
                            ? p.w_nat + (size_t)((p.s0 + r) >> 5) * p.wn_stride
                            : nullptr;
+    const unsigned* keys = p.keys ? p.keys + (size_t)r * p.keys_rw : nullptr;
 
     // 1. every own tile: load, summarise, publish
     Sum ex = sum_identity();
     int held = -1;  // the tile whose rows and prefix the registers hold
     for (int j = b; j < nt; j += G) {
-      load_tile<AD, ITEMS>(t, j, n, s, kk, a_src, d_src, w_src, w_gat);
+      load_tile<AD, ITEMS>(t, j, n, s, kk, a_src, d_src, w_src, w_gat, keys);
       held = j;
       Sum tot;
       ex = block_scan<AD>(thread_sum<AD, ITEMS>(t), sh_warp, &tot);
@@ -408,7 +425,7 @@ __global__ void __launch_bounds__(THREADS) partition_sites(const Params p) {
     bool failed;
     const int c = scan_records<AD>(recs, 0, nt, b, stamp, err, sh_warp, &sh_at, &run, &failed).z;
     if (failed) return;
-    if (b == 0 && threadIdx.x == 0) p.counts[r] = c;
+    if (b == 0 && threadIdx.x == 0 && p.counts) p.counts[r] = c;
 
     // 3. scatter every own tile
     for (int j = b; j < nt; j += G) {
@@ -419,7 +436,7 @@ __global__ void __launch_bounds__(THREADS) partition_sites(const Params p) {
         if (failed) return;
       }
       if (j != held) {  // only a block with several tiles loads again
-        load_tile<AD, ITEMS>(t, j, n, s, kk, a_src, d_src, w_src, w_gat);
+        load_tile<AD, ITEMS>(t, j, n, s, kk, a_src, d_src, w_src, w_gat, keys);
         held = j;
         Sum tot;
         ex = block_scan<AD>(thread_sum<AD, ITEMS>(t), sh_warp, &tot);
@@ -459,7 +476,8 @@ __global__ void __launch_bounds__(THREADS) partition_sites(const Params p) {
           u[q] = 0;
         }
       }
-      if constexpr (AD) store_rows<ITEMS>(p.u_out + (size_t)r * p.a_stride, t.i0, t.nvalid, u);
+      if constexpr (AD)
+        if (p.u_out) store_rows<ITEMS>(p.u_out + (size_t)r * p.a_stride, t.i0, t.nvalid, u);
     }
 
     // 4. the next site reads what every block scattered
@@ -605,6 +623,37 @@ int k2_partition_ad_step(int device, const int* a_in0, const int* d_in0, const i
   p.wn_stride = (size_t)wn_stride;
   p.u_out = u_out;
   p.counts = counts;
+  p.scratch = scratch;
+  return dispatch<true>(p, items, max_blocks, (cudaStream_t)stream);
+}
+
+// K2 over nsites chained sites in one launch, the keys from packed sorted
+// columns: site r's key of row i is bit i % 32 of word i / 32 of the rw words
+// at keys + r * rw (the layout of K1's ycols and the sharded build's
+// sitewords). a_in0, d_in0 enter site 0 (d without the d[M] sentinel); site r
+// is global site kk0 + r and writes plane r % 2 of a_pp and d_pp (two planes
+// of n ints each), so the last site's (a, d) is plane (nsites - 1) % 2. No
+// zero-rank table, count or word is written.
+int k2_partition_ad_columns(int device, const int* keys, int rw, const int* a_in0,
+                            const int* d_in0, int n, int nsites, int kk0, int* a_pp, int* d_pp,
+                            int* scratch, int items, int max_blocks, void* stream) {
+  if (n <= 0 || nsites <= 0) return 0;
+  if (n > INT_MAX - 4096 || nsites > MAX_SITES || !keys || rw < (n + 31) / 32)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Params p = {};
+  p.n = n;
+  p.nsites = nsites;
+  p.kk0 = kk0;
+  p.a_in0 = a_in0;
+  p.a_out = a_pp;
+  p.d_in0 = d_in0;
+  p.d_out = d_pp;
+  p.a_stride = (size_t)n;
+  p.a_mod = 2;
+  p.keys = reinterpret_cast<const unsigned*>(keys);
+  p.keys_rw = rw;
   p.scratch = scratch;
   return dispatch<true>(p, items, max_blocks, (cudaStream_t)stream);
 }

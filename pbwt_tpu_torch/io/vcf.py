@@ -97,13 +97,23 @@ def _parse_vcf_text(raw):
     return header_lines, sample_names, all_records()
 
 
+# bytes of natural-order columns the device route holds on the host: a
+# block of whole 32-site groups of this size is built at a time
+BLOCK_BYTES = 256 << 20
+GROUP = 32              # sites a group word (ops/partition.py)
+
+
 def _build_from_records(filename: str, sample_names, records) -> PBWT:
     from ..ops import device_requested
     # on a device backend (and with no checkpoint cadence to honour), columns
-    # are accumulated and built at once by engine.build_from_haplotypes,
-    # which takes large panels to the device engine
+    # are gathered into a block of BLOCK_BYTES and built on the card a block
+    # at a time (ops/build.BlockBuild), the prefix array carried between
+    # blocks; a panel that fits one block goes to engine.build_from_haplotypes,
+    # which takes it to the device engine when it is large
     batch = device_requested() and not registry.n_checkpoint
-    cols: list[np.ndarray] = []
+    cols: np.ndarray | None = None
+    n_cols = 0
+    blocks = None                 # ops/build.BlockBuild once a block is full
     p: PBWT | None = None
     u: engine.WriteCursor | None = None
     n_missing = 0
@@ -121,7 +131,10 @@ def _build_from_records(filename: str, sample_names, records) -> PBWT:
                 k = registry.sample_add(name)
                 p.samples.extend([k, k])
             p.sites = []
-            if not batch:
+            if batch:
+                sites = max(GROUP, BLOCK_BYTES // max(p.M, 1) // GROUP * GROUP)
+                cols = np.empty((sites, p.M), np.uint8)
+            else:
                 u = engine.WriteCursor(p.M)
         chrom = f[0]
         if p.chrom is None:
@@ -207,7 +220,14 @@ def _build_from_records(filename: str, sample_names, records) -> PBWT:
         alts = ["."] if no_alt else [a.upper() for a in alt_field.split(",")]
         for ai, alt in enumerate(alts, start=1):
             if batch:
-                cols.append((x == ai).astype(np.uint8))
+                if n_cols == len(cols):
+                    if blocks is None:
+                        from ..ops.build import BlockBuild
+                        blocks = BlockBuild(p.M)
+                    blocks.add(cols)
+                    n_cols = 0
+                cols[n_cols] = x == ai
+                n_cols += 1
             else:
                 u.write_natural((x == ai).astype(np.uint8))
             if n_missing > was_missing:
@@ -234,8 +254,11 @@ def _build_from_records(filename: str, sample_names, records) -> PBWT:
 
     if p is None:
         raise ValueError(f"failed to read any GT data from {filename}")
-    if cols:
-        p.yz, p.aFend = engine.build_from_haplotypes(np.stack(cols, axis=1))
+    if blocks is not None:
+        blocks.add(cols[:n_cols])
+        p.yz, p.aFend = blocks.finish()
+    elif n_cols:
+        p.yz, p.aFend = engine.build_from_haplotypes(cols[:n_cols].T)
     else:
         u = u or engine.WriteCursor(p.M)
         p.yz, p.aFend = u.packed(), u.a.copy()

@@ -24,6 +24,7 @@ from .partition import GROUP, ad_trajectory, group_scan
 
 DIVERGENCE_BYTES = 2 << 30     # trajectory tables of one chunk of the
                                # divergence pass
+ENCODE_SITES = 1024            # sorted columns unpacked on the host at a time
 
 
 def pad_to(M: int, multiple: int = 256) -> int:
@@ -44,6 +45,27 @@ def pack_group_words(X: np.ndarray, Mp: int) -> np.ndarray:
     if N % 8:                                       # ones past N in the byte
         rows[:M, bits.shape[1] - 1] |= np.uint8((0xFF << (N % 8)) & 0xFF)
     return np.ascontiguousarray(rows.view(np.int32).T)
+
+
+def pack_column_words(cols: np.ndarray, Mp: int) -> np.ndarray:
+    """(n, M) 0/1 natural-order columns -> (ceil(n/32), Mp) int32 group
+    words, the layout of :func:`pack_group_words` (site 32t+s of haplotype
+    i at bit s of word [t, i]; rows M..Mp-1 and sites beyond n ones), packed
+    along the columns so that a stream of columns needs no transpose."""
+    n, M = cols.shape
+    Ng, full = -(-n // GROUP), n // GROUP
+    W = np.full((Ng, Mp), -1, np.int32)
+    if full:
+        b = np.packbits(cols[:full * GROUP].reshape(full, GROUP, M), axis=1,
+                        bitorder="little")          # site 8j+b: byte j, bit b
+        W[:full, :M] = np.ascontiguousarray(b.transpose(0, 2, 1)).view(
+            np.int32)[..., 0]
+    if n % GROUP:
+        tail = np.ones((GROUP, M), np.uint8)
+        tail[:n % GROUP] = cols[full * GROUP:]
+        b = np.packbits(tail, axis=0, bitorder="little")
+        W[full, :M] = np.ascontiguousarray(b.T).view(np.int32)[:, 0]
+    return W
 
 
 def unpack_columns(ycols: np.ndarray, M: int) -> np.ndarray:
@@ -106,6 +128,50 @@ def build_scan_grouped(W: torch.Tensor, a0: torch.Tensor,
     return ycols, counts, a_end, d_end
 
 
+def encode_columns(ycols: np.ndarray, M: int) -> bytes:
+    """pack3 bytes of packed sorted columns, ENCODE_SITES columns at a time
+    (a column's bytes do not depend on the others')."""
+    out = []
+    for c0 in range(0, len(ycols), ENCODE_SITES):
+        Y = unpack_columns(ycols[c0:c0 + ENCODE_SITES], M)
+        # the native column encoder when the C runtime is there (its absence
+        # comes with a warning): numpy's pack_columns spends most of its time
+        # in np.unique at this size
+        out.append((native.encode_cols(Y) or pack3.pack_columns(Y))[0])
+    return b"".join(out)
+
+
+class BlockBuild:
+    """Construction of a stream of natural-order columns on ``device`` in
+    blocks of whole 32-site groups (the last block may end inside a group):
+    K1 over a block, the prefix array carried on the card from block to
+    block, each block's sorted columns pack3-encoded as they come back. The
+    host holds one block's columns and the encoded bytes, never the panel.
+
+    ``add(cols)`` takes an (n, M) uint8 block; ``finish()`` returns (yz
+    bytes, aFend int32[M]), those of :func:`build_pbwt_device` on the whole
+    panel.
+    """
+
+    def __init__(self, M: int, device=None):
+        self.dev = resolve_device(device)
+        self.M, self.Mp = M, pad_to(M)
+        self.a = torch.arange(self.Mp, dtype=torch.int32, device=self.dev)
+        self.yz: list[bytes] = []
+
+    def add(self, cols: np.ndarray) -> None:
+        n = len(cols)
+        if n == 0:
+            return
+        W = torch.from_numpy(pack_column_words(cols, self.Mp)).to(self.dev)
+        ycols, _, self.a, _ = build_scan_grouped(W, self.a)
+        self.yz.append(encode_columns(ycols[:n].cpu().numpy(), self.M))
+
+    def finish(self) -> tuple[bytes, np.ndarray]:
+        yz, self.yz = b"".join(self.yz), []
+        return yz, self.a[:self.M].cpu().numpy().astype(np.int32)
+
+
 def build_pbwt_device(X: np.ndarray, device=None, multiple: int = 256):
     """Construction from an (M, N) haplotype matrix on ``device``, the rows
     padded to a multiple of ``multiple``.
@@ -119,10 +185,6 @@ def build_pbwt_device(X: np.ndarray, device=None, multiple: int = 256):
     W = torch.from_numpy(pack_group_words(X, Mp)).to(dev)
     a0 = torch.arange(Mp, dtype=torch.int32, device=dev)
     ycols, counts, a_end, _ = build_scan_grouped(W, a0)
-    Ysort = unpack_columns(ycols[:N].cpu().numpy(), M)
-    # the native column encoder when the C runtime is there (its absence
-    # comes with a warning): numpy's pack_columns spends most of its time in
-    # np.unique at this size
-    yz, _ = native.encode_cols(Ysort) or pack3.pack_columns(Ysort)
-    return (yz, a_end[:M].cpu().numpy().astype(np.int32),
+    return (encode_columns(ycols[:N].cpu().numpy(), M),
+            a_end[:M].cpu().numpy().astype(np.int32),
             counts[:N].cpu().numpy())

@@ -13,7 +13,9 @@ after its launches, and :func:`launch` raises when that is not 0: a refused
 launch never runs, and a later ``torch.cuda.synchronize()`` would not say so.
 :data:`LAUNCHES` counts, per kernel, the calls that launched it; each
 launch is a ``torch.profiler.record_function`` span of the kernel's name, so
-a trace (``-profile``) names the hand-written kernels.
+a trace (``-profile``) names the hand-written kernels. :class:`Graph`
+captures a function's launches once as a CUDA graph and replays it, each
+replay counting the launches it holds.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ _SIGNATURES = {
                            _I, _P],
     "k2_partition_ad_step": [_I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
                              _P, _L, _P, _P, _P, _I, _I, _P],
+    "k2_partition_ad_columns": [_I, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P,
+                                _I, _I, _P],
     "k3_rank_plane": [_I, _P, _P, _I, _I, _P, _P],
     "k3_match_scan": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P, _I, _P, _P],
@@ -52,8 +56,13 @@ _SIGNATURES = {
     "k7_fm_step": [_I, _P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P],
 }
 
+# entries that launch another entry's kernel, counted under its name
+_KERNEL_OF = {"k2_partition_ad_columns": "k2_partition_ad_step"}
+
 # kernel name -> number of wrapper calls that launched it
-LAUNCHES = dict.fromkeys(_SIGNATURES, 0)
+LAUNCHES = dict.fromkeys((k for k in _SIGNATURES if k not in _KERNEL_OF), 0)
+# graph name -> number of replays (:class:`Graph`)
+REPLAYS: dict[str, int] = {}
 
 # entries that launch nothing: name -> argument types
 _AUX_SIGNATURES = {"pbwt_partition_layout": [_I], "k3_plane_layout": [_I],
@@ -175,12 +184,44 @@ def launch(name: str, *args) -> None:
         # ctypes would pass the surplus with its default conversion, an int
         raise TypeError(f"pbwt_tpu_torch: {name} takes "
                         f"{len(_SIGNATURES[name])} arguments, not {len(args)}")
-    LAUNCHES[name] += 1
+    LAUNCHES[_KERNEL_OF.get(name, name)] += 1
     with torch.profiler.record_function(name):
         err = fn(*args)
     if err != 0:
         raise RuntimeError(f"pbwt_tpu_torch: {name} failed with cudaError_t "
                            f"{err}")
+
+
+class Graph:
+    """fn's kernel launches (and anything else it enqueues on the current
+    stream, a captured NCCL collective included) captured once as a CUDA
+    graph, to be replayed with no host work but the replay. Run fn once
+    directly before (a warm-up: NCCL makes its communicator at its first
+    collective, and nothing is allocated while capturing). The capture
+    counts no launch; a replay is one ``record_function`` span of ``name``
+    and adds to :data:`LAUNCHES` the launches fn made while captured. A
+    capture that fails raises with torch's error."""
+
+    def __init__(self, name: str, fn):
+        self.name = name
+        before = dict(LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            # thread-local: NCCL's watchdog thread may query its events
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                fn()
+        finally:
+            self.launches = {k: n - before[k] for k, n in LAUNCHES.items()
+                             if n != before[k]}
+            LAUNCHES.update(before)
+
+    def replay(self) -> None:
+        with torch.profiler.record_function(self.name):
+            self.graph.replay()
+        REPLAYS[self.name] = REPLAYS.get(self.name, 0) + 1
+        for k, n in self.launches.items():
+            LAUNCHES[k] += n
 
 
 def typed_cuda_tensors(*pairs: tuple[torch.Tensor, torch.dtype]

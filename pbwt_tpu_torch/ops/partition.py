@@ -5,8 +5,9 @@ Counterpart of ``pbwt_tpu/ops/partition_pallas.py``. Arrays are flat
 flattened); any ``Mp`` is accepted. :func:`group_partition` and
 :func:`partition_ad_step` are the counterparts of the JAX functions (one
 group, one site); :func:`group_scan` and :func:`ad_trajectory` run a whole
-construction scan and a whole trajectory, which on the card is one
-persistent launch each (``csrc/partition.cu``). Each wrapper runs its CUDA
+construction scan and a whole trajectory, and :func:`ad_columns` the
+divergence-carrying partition of packed sorted columns, each one persistent
+launch on the card (``csrc/partition.cu``). Each wrapper runs its CUDA
 kernel on CUDA tensors and its plain-torch twin on CPU tensors; it never
 falls back from one to the other. The kernels choose their own launch
 shape (rows a thread, blocks) from the row count and the card.
@@ -223,6 +224,52 @@ def partition_ad_step(a, d, w, s: int, kk: int):
                    kernels.stream(dev))
     _raise_on_error(scratch, "k2_partition_ad_step")
     return a2, d2, w2, u, cnt
+
+
+def ad_columns_plain(ycols: torch.Tensor, a0: torch.Tensor,
+                     d0: torch.Tensor, first_site: int = 0):
+    """Plain twin of :func:`ad_columns`: :func:`partition_ad_step_plain`
+    site after site on each unpacked column."""
+    a, d = a0, d0
+    bits = torch.arange(GROUP, dtype=torch.int64, device=ycols.device)
+    for r in range(ycols.shape[0]):
+        key = ((ycols[r].long()[:, None] >> bits) & 1).reshape(-1)
+        a, d = partition_ad_step_plain(a, d, key[:a0.numel()].to(torch.int32),
+                                       0, first_site + r)[:2]
+    return a, d
+
+
+def ad_columns(ycols: torch.Tensor, a0: torch.Tensor, d0: torch.Tensor,
+               first_site: int = 0):
+    """The divergence-carrying partition of sites given as their packed
+    sorted columns (kernel K2, one launch for all sites).
+
+    ycols: (Ns, ceil(Mp/32)) int32, site r's key of row i at bit i % 32 of
+    word i // 32 of row r (the layout of :func:`group_scan`'s ycols); a0,
+    d0: (Mp,) int32 the prefix and divergence arrays entering site 0, the
+    global site first_site. Returns (a, d) after the last site: a is the
+    final prefix array, d the divergence array (d[0] = first_site + Ns + 1).
+    """
+    if ycols.device.type == "cpu":
+        return ad_columns_plain(ycols, a0, d0, first_site)
+    dev = kernels.cuda_tensors(ycols, a0, d0)
+    Ns, rw = ycols.shape
+    n = a0.numel()
+    if d0.numel() != n or rw != (n + 31) // 32:
+        raise ValueError(f"ad_columns: a0 {n}, d0 {d0.numel()} rows, "
+                         f"columns of {rw} words")
+    if n == 0 or Ns == 0:
+        return a0.clone(), d0.clone()
+    a_pp, d_pp = (torch.empty((2, n), dtype=torch.int32, device=dev)
+                  for _ in "ad")
+    scratch = _scratch(n, dev)
+    kernels.launch("k2_partition_ad_columns", dev.index, ycols.data_ptr(),
+                   rw, a0.data_ptr(), d0.data_ptr(), n, Ns, int(first_site),
+                   a_pp.data_ptr(), d_pp.data_ptr(), scratch.data_ptr(), 0, 0,
+                   kernels.stream(dev))
+    _raise_on_error(scratch, "k2_partition_ad_columns")
+    last = (Ns - 1) % 2
+    return a_pp[last], d_pp[last]
 
 
 def _trajectory_tables(W: torch.Tensor):

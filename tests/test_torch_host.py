@@ -586,6 +586,35 @@ def test_read_vcf_gt_takes_the_device_build(tmp_path, monkeypatch):
     assert _same(dev, host)
 
 
+def test_read_vcf_gt_builds_in_blocks(tmp_path, monkeypatch):
+    """-readVcfGT on the device route (the CPU named) with the block made
+    small: about 200 sites with missing genotypes and a two-ALT site go
+    through BlockBuild in several blocks of whole groups, the prefix array
+    carried between them, and -writeAll writes the bytes of the JAX
+    package's CLI (the PBWT, sites, samples and missing data)."""
+    import pbwt_tpu.cli as ref_cli
+    import pbwt_tpu_torch.cli as port_cli
+    path = str(tmp_path / "blocks.vcf")
+    _write_vcf(path, _panel(24, 90, 196), missing=True)
+    monkeypatch.setattr(port_vcf, "BLOCK_BYTES", 64 * 90 + 89)
+    sizes = []
+    real = port_build.BlockBuild.add
+    monkeypatch.setattr(port_build.BlockBuild, "add", lambda self, cols:
+                        sizes.append(len(cols)) or real(self, cols))
+    monkeypatch.setenv("PBWT_TORCH_DEVICE", "cpu")
+    assert port_cli.main(["-readVcfGT", path, "-writeAll",
+                          str(tmp_path / "port")]) == 0
+    assert sizes == [64, 64, 64, 218 - 3 * 64]
+    assert ref_cli.main(["-readVcfGT", path, "-writeAll",
+                         str(tmp_path / "ref")]) == 0
+    files = sorted(f for f in os.listdir(tmp_path) if f.startswith("ref."))
+    assert {"ref.pbwt", "ref.sites", "ref.samples", "ref.missing"} <= set(
+        files)
+    for f in files:
+        assert ((tmp_path / f.replace("ref.", "port.", 1)).read_bytes()
+                == (tmp_path / f).read_bytes()), f
+
+
 def test_no_device_is_an_error_not_the_cpu(monkeypatch):
     """Without a CUDA card the device routes raise; the CPU runs only when
     it is named."""

@@ -476,8 +476,9 @@ def test_paint_matches_jax_package(tmp_path, monkeypatch, route):
 def test_paint_sparse_and_local_match_jax_package(tmp_path, monkeypatch,
                                                   route):
     """-paintSparse (the per-individual C pass, or the loop) against the
-    JAX package's streams, decompressed; and -paint's outputlocal, which
-    always takes the reference's loop."""
+    JAX package's streams, byte for byte (zlib's gzip wrapper and deflate
+    stream); and -paint's outputlocal, which always takes the reference's
+    loop."""
     X = mosaic(10, 20, 70)
     pp, pr = both_panels(X)
     if route == "no_runtime":
@@ -486,12 +487,27 @@ def test_paint_sparse_and_local_match_jax_package(tmp_path, monkeypatch,
         paint.paint_ancestry_matrix_sparse(p, str(tmp_path / side), 3, 2, 4)
         paint.paint_ancestry_matrix(p, str(tmp_path / f"{side}L"), 3, 2, 1)
     for t in SPARSE:
-        got = gzip.open(tmp_path / f"port.{t}.s.out.gz").read()
-        assert got == gzip.open(tmp_path / f"ref.{t}.s.out.gz").read()
-        assert got
+        got = (tmp_path / f"port.{t}.s.out.gz").read_bytes()
+        assert got == (tmp_path / f"ref.{t}.s.out.gz").read_bytes()
+        assert gzip.decompress(got)
     for t in ("localancestry.out", *TABLES):
         got = (tmp_path / f"portL.{t}").read_bytes()
         assert got == (tmp_path / f"refL.{t}").read_bytes()
+
+
+def test_paint_sparse_bytes_repeat(tmp_path):
+    """-paintSparse's streams are the same bytes from run to run and under
+    another root: zlib's gzip header with flags 0 (no file name), mtime 0
+    and OS 3, as gzopen writes it."""
+    X = mosaic(11, 16, 60)
+    pp, _ = both_panels(X)
+    for root in ("one", "two"):
+        port_paint.paint_ancestry_matrix_sparse(pp, str(tmp_path / root), 3,
+                                                2, 0)
+    for t in SPARSE:
+        got = (tmp_path / f"one.{t}.s.out.gz").read_bytes()
+        assert got == (tmp_path / f"two.{t}.s.out.gz").read_bytes()
+        assert got[:10] == b"\x1f\x8b\x08\x00\x00\x00\x00\x00\x00\x03"
 
 
 @pytest.mark.parametrize("no_runtime", [False, True])
@@ -655,13 +671,13 @@ def test_cli_paint_equals_jax_package(tmp_path, paint_panel, device):
 
 def test_cli_paint_sparse_and_within_equal_jax_package(tmp_path,
                                                        paint_panel):
-    """-paintSparse's five streams decompressed, and the stdout of
+    """-paintSparse's five streams byte for byte, and the stdout of
     -maxWithin, -longWithin 20, -stats -maxWithin and -check -maxWithin."""
     outs = [run_both(["-readAll", paint_panel, "-paintSparse", "S", "3", "2",
                       "2"], tmp_path, {})]
     for t in SPARSE:
-        got = gzip.open(tmp_path / "port" / f"S.{t}.s.out.gz").read()
-        assert got == gzip.open(tmp_path / "ref" / f"S.{t}.s.out.gz").read()
+        got = (tmp_path / "port" / f"S.{t}.s.out.gz").read_bytes()
+        assert got == (tmp_path / "ref" / f"S.{t}.s.out.gz").read_bytes()
     for extra in (["-maxWithin"], ["-longWithin", "20"],
                   ["-stats", "-maxWithin"], ["-check", "-maxWithin"]):
         outs.append(run_both(["-readAll", paint_panel, *extra], tmp_path,

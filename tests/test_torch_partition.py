@@ -226,7 +226,10 @@ def test_c_prototypes_match_ctypes_signatures():
     assert set(entries) == set(bound)
     for name, kinds in entries.items():
         assert [_CTYPES[k] for k in kinds] == bound[name], name
-    assert set(kernels.LAUNCHES) == set(kernels._SIGNATURES)
+    # an entry that launches another entry's kernel counts under its name
+    assert set(kernels.LAUNCHES) == set(kernels._SIGNATURES) - set(
+        kernels._KERNEL_OF)
+    assert set(kernels._KERNEL_OF.values()) <= set(kernels.LAUNCHES)
 
 
 @pytest.mark.parametrize("code,what", [(1, "grid barrier"), (2, "flag")])

@@ -242,12 +242,11 @@ def test_ranks_launch_no_kernel_on_the_cpu(ranks):
 
 
 def _jax_fm_step(pos, w, s, colw, Mp):
-    """pbwt_tpu/parallel/sharding.py:67-75 and its _unpack_colw, on one
-    site's column: (pos', c, the column one position an element)."""
+    """pbwt_tpu/parallel/sharding.py:67-75 on one site's column: (pos', c,
+    the ones before every 1,024th position and in all, K7's chunk
+    prefix)."""
     import jax
     import jax.numpy as jnp
-
-    from pbwt_tpu.parallel.sharding import _unpack_colw
     colw, pos = jnp.asarray(colw), jnp.asarray(pos)
     y = (jnp.asarray(w) >> s) & 1
     pc = jax.lax.population_count(colw)
@@ -257,7 +256,10 @@ def _jax_fm_step(pos, w, s, colw, Mp):
         colw[pos >> 5] & ((jnp.int32(1) << (pos & 31)) - 1))
     u_pos = pos - (ones_excl[pos >> 5] + within)
     pos = jnp.where(y != 0, c + pos - u_pos, u_pos)
-    return np.asarray(pos), int(c), np.asarray(_unpack_colw(colw, Mp))
+    nw = Mp // 32
+    ends = sorted(set(range(0, nw, 32)) | {nw})
+    ones = np.append(np.asarray(ones_excl), Mp - int(c))
+    return np.asarray(pos), int(c), ones[ends]
 
 
 @pytest.mark.parametrize("world", [1, 3])
@@ -265,8 +267,8 @@ def test_fm_step_twin_equals_jax_formulas(world):
     """K7's twin site by site over 64 sites on `world` simulated ranks: the
     contributions scattered at the positions (the first site's alone, the
     others fused into the step before) sum to the column, and pos', the
-    zero count and the unpacked column equal the JAX package's formulas;
-    the columns are the host engine's sorted columns."""
+    zero count and the column's chunk prefix equal the JAX package's
+    formulas; the columns are the host engine's sorted columns."""
     import jax.numpy as jnp
     M, N = 32 * 3 * 4, 64
     X = rand_haps(11, M, N)
@@ -291,21 +293,85 @@ def test_fm_step_twin_equals_jax_formulas(world):
                               Ysort[k])
         nxt = [torch.zeros_like(colw) for _ in range(world)]
         for r in range(world):
-            col = torch.empty(M, dtype=torch.int32)
+            pref = torch.empty(ops_sharding.prefix_len(M), dtype=torch.int32)
             count = torch.empty(1, dtype=torch.int32)
             more = (dict(nxt=nxt[r], wn=Wl[r][(k + 1) // 32],
                          s_next=(k + 1) % 32) if k + 1 < N else {})
             got = ops_sharding.fm_step(pos[r], Wl[r][k // 32], k % 32, colw,
-                                       M, col=col, count=count, **more)
-            want, c, bits = _jax_fm_step(pos[r].numpy(),
+                                       M, count=count, pref=pref, **more)
+            want, c, ones = _jax_fm_step(pos[r].numpy(),
                                          Wl[r][k // 32].numpy(), k % 32,
                                          colw.numpy(), M)
             assert np.array_equal(got.numpy(), want)
             assert int(count) == c == zeros[k]
-            assert np.array_equal(col.numpy(), bits)
+            assert np.array_equal(pref.numpy(), ones)
             pos[r] = got
         contrib = nxt
     assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("Mp", [256, 288])
+def test_divergence_from_packed_columns(Mp):
+    """The replicated divergence as one pass over the packed sorted columns
+    (ops/partition.py:ad_columns, K2's twin on the CPU) equals
+    build_scan_grouped(with_divergence=True) in a and d, and the JAX
+    package's end state (its engine's forwards_ad, pbwtCursorForwardsAD) on
+    the real rows, at 45 sites (not a whole group); 288 rows is not a
+    multiple of 32 x 2 ranks."""
+    from pbwt_tpu.core import engine as ref_engine
+    from pbwt_tpu_torch.ops import partition
+    M, N = Mp - 13, 45
+    X = rand_haps(17, M, N)
+    W = torch.from_numpy(build.pack_group_words(X, Mp))
+    a0 = torch.arange(Mp, dtype=torch.int32)
+    ycols, counts, a_end, d_end = build.build_scan_grouped(
+        W, a0, with_divergence=True, n_sites=N)
+    d0 = torch.zeros(Mp, dtype=torch.int32)
+    d0[0] = 1
+    a, d = partition.ad_columns(ycols, a0, d0)
+    assert torch.equal(a, a_end) and int(d[0]) == ycols.shape[0] + 1
+    d[0] = N + 1
+    assert torch.equal(d, d_end)
+    a_ref = np.arange(M, dtype=np.int32)
+    d_ref = np.zeros(M + 1, dtype=np.int32)
+    d_ref[0] = d_ref[M] = 1
+    for k in range(N):
+        a_ref, d_ref = ref_engine.forwards_ad(a_ref, d_ref, X[a_ref, k], k)
+    assert np.array_equal(a[:M].numpy(), a_ref)
+    assert np.array_equal(d[:M].numpy(), d_ref[:M])
+
+
+def test_site_groups_equal_jax_formulas():
+    """The sharded build's group function called directly, a world of one
+    (its collective the identity) over two groups at 2,112 rows (3 chunks
+    of K7's prefix): every column, zero count and position equals the JAX
+    package's per-site formulas (pbwt_tpu/parallel/sharding.py:67-75), the
+    chunk prefix its ones before every 1,024th position, and the group's
+    collective bytes Mp/8 a site."""
+    M, Mp, N = 2_100, 2_112, 64
+    X = rand_haps(19, M, N)
+    W = torch.from_numpy(build.pack_group_words(X, Mp))
+    g = parallel.Group("gloo", 0, 1, torch.device("cpu"))
+    chase = sharding.SiteGroups(W, g)
+    sitewords = torch.zeros((N, Mp // 32), dtype=torch.int32)
+    counts = torch.empty(N, dtype=torch.int32)
+    pos = np.arange(Mp, dtype=np.int32)
+    for grp in range(N // 32):
+        chase.run(grp, sitewords, counts)
+        for k in range(32 * grp, 32 * grp + 32):
+            w = W[k // 32].numpy()
+            y = ((w >> (k % 32)) & 1).astype(np.int64)
+            colw = np.zeros(Mp // 32, np.int64)
+            np.add.at(colw, pos >> 5, y << (pos & 31))
+            colw = colw.astype(np.uint32).view(np.int32)
+            assert np.array_equal(sitewords[k].numpy(), colw), k
+            pos, c, ones = _jax_fm_step(pos, w, k % 32, colw, Mp)
+            assert int(counts[k]) == c, k
+        assert np.array_equal(chase.pos.numpy(), pos)
+        assert np.array_equal(chase.pref.numpy(), ones)
+    assert g.bytes == N * Mp // 8
+    Ysort = dryrun.host_build(X)[0]
+    assert np.array_equal(build.unpack_columns(sitewords.numpy(), M), Ysort)
 
 
 def test_shard_cuts_whole_units():
@@ -390,3 +456,36 @@ def test_fm_step_takes_no_other_device_and_launches_are_profiled(
         kernels.launch("k7_fm_step", *[0] * 14)
     assert kernels.LAUNCHES["k7_fm_step"] == 1
     assert "k7_fm_step" in {e.name for e in prof.events()}
+
+
+def test_graph_replay_counts_its_launches(monkeypatch):
+    """kernels.Graph: the capture counts no launch (nothing ran), a replay
+    adds the launches the captured function made and is one profiler span
+    of the graph's name (CUDA's capture and replay stubbed out here)."""
+    import contextlib
+
+    class Lib:
+        @staticmethod
+        def k7_fm_step(*args):
+            return 0
+
+    class FakeGraph:
+        def replay(self):
+            pass
+    monkeypatch.setattr(kernels, "library", lambda: Lib)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda g, **kw: contextlib.nullcontext())
+    monkeypatch.setitem(kernels.LAUNCHES, "k7_fm_step", 5)
+    monkeypatch.setattr(kernels, "REPLAYS", {})
+    graph = kernels.Graph("group_graph", lambda: [
+        kernels.launch("k7_fm_step", *[0] * 14) for _ in range(3)])
+    assert kernels.LAUNCHES["k7_fm_step"] == 5
+    assert graph.launches == {"k7_fm_step": 3}
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        graph.replay()
+        graph.replay()
+    assert kernels.LAUNCHES["k7_fm_step"] == 11
+    assert kernels.REPLAYS == {"group_graph": 2}
+    assert [e.name for e in prof.events()].count("group_graph") == 2
