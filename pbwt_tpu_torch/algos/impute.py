@@ -1,32 +1,36 @@
-"""Reference imputation: the dosage codec and imputation by weighted
-maximal-match voting (pbwtImpute.c).
+"""Imputation: the dosage codec, reference imputation by weighted
+maximal-match voting, missing-data imputation, genotype comparison and
+the corruption and copy utilities (pbwtImpute.c).
 
-Counterpart of ``pbwt_tpu/algos/impute.py`` for ``-referenceImpute`` and
-``-imputeMissing``: the dosage codec, ``reference_impute3``,
-``reference_impute`` and ``impute_missing``. The matches are collected on
+Counterpart of ``pbwt_tpu/algos/impute.py``. For ``-referenceImpute`` and
+``-imputeMissing`` (``reference_impute3``, ``reference_impute``,
+``impute_missing``) the matches are collected on
 the host (the C sweep or, for -imputeMissing, the C within-panel scan; the
 callback matchers without the C runtime); the votes are taken by the
 streaming C pass on the host, by kernel K5 on the device engine when
 :func:`pbwt_tpu_torch.ops.device_requested` says so (not for
 -imputeMissing, whose pass is host C in the reference too), or by numpy
 without the C runtime. All three give the same bytes: a vote's weights are
-integers, so its f64 sums are exact in any order.
-
-Not in the port yet (served by ``python -m pbwt_tpu``): ``-genotypeCompare``
-and the corruption utilities.
+integers, so its f64 sums are exact in any order. ``-genotypeCompare``,
+``-corruptSites``, ``-corruptSamples`` and ``-copySamples`` run on the
+host C runtime, as in the JAX package; the last three draw from its
+glibc rand() stream (:mod:`pbwt_tpu_torch.core.crand`).
 """
 
 from __future__ import annotations
 
 import math
+import sys
 
 import numpy as np
 
-from ..core import engine, native, pack3 as p3, registry
+from ..core import crand, engine, native, pack3 as p3, registry
 from ..core.pbwt import PBWT
 from ..ops import device_requested
 from ..utils import log, time_update
 from . import match as matchmod
+
+F_BOUND = [0.1, 0.2, 0.3, 0.5, 0.7, 1, 2, 3, 5, 7, 10, 20, 30, 50, 70, 90, 100.01]
 
 # --------------------------------------------------------------------------
 # dosage codec (pbwtImpute.c:1631-1700)
@@ -420,4 +424,356 @@ def impute_missing(p_old: PBWT) -> PBWT:
     p_new.sites = p_old.sites
     p_new.samples = p_old.samples
     p_new.chrom = p_old.chrom
+    return p_new
+
+
+# --------------------------------------------------------------------------
+# genotype comparison (genotypeCompare, pbwtImpute.c:1375-1488)
+# --------------------------------------------------------------------------
+
+def genotype_compare(p: PBWT, root: str) -> None:
+    from ..io import pbwtfile
+    log(f"compare genotypes to reference {root}")
+    if p is None or not p.yz or p.sites is None:
+        raise ValueError("genotypeCompare called without existing pbwt with sites")
+    p_ref = pbwtfile.read_all(root)
+    if p.chrom != p_ref.chrom:
+        raise ValueError(f"mismatch chrom {p.chrom} to ref {p_ref.chrom}")
+    if p_ref.sites is None:
+        raise ValueError(f"new pbwt {root} in genotypeCompare has no sites")
+    if p.M != p_ref.M:
+        raise ValueError(f"mismatch of old M {p.M} to ref M {p_ref.M}")
+    if p.N == p_ref.N:
+        _genotype_compare_pbwt(p, p_ref)
+    else:
+        log(f"mismatch of old N {p.N} to ref N {p_ref.N}")
+        p_frame = p.select_sites(p_ref.sites, keep_old=True)
+        p_ref = p_ref.select_sites(p.sites, keep_old=False)
+        if not p_frame.N:
+            raise ValueError("no overlapping sites in genotypeCompare")
+        _genotype_compare_pbwt(p_frame, p_ref)
+
+
+def _genotype_compare_pbwt(p: PBWT, q: PBWT) -> None:
+    out = sys.stdout
+    is_dosage = p.dosageOffset is not None
+    nd = np.zeros(12, dtype=np.int64)
+    nd1 = np.zeros(12, dtype=np.int64)
+
+    # vectorised accumulation streamed in site chunks (the per-site
+    # counting loops of pbwtImpute.c:1398-1438 become bincounts over
+    # (bin, genotype-pair) keys; O(M * chunk) live bytes — the dense
+    # (M, N) matrices cost more in page faults than the counting at
+    # 16k x 16k).  Only the dosage tallies still walk sites, to stream
+    # the RLE.
+    from ..core import native
+    M, N = p.M, p.N
+    rf = np.array([s.refFreq for s in p.sites], dtype=np.float64)
+    is_ref_freq = bool((rf != 0.0).any())
+    ii = np.array([s.imputeInfo for s in p.sites], dtype=np.float64)
+    fbound = np.asarray(F_BOUND)
+
+    chunk = 1024
+    stream = native.get_lib() is not None and bool(p.yz) and bool(q.yz)
+    if stream and not is_dosage:
+        # the whole counting pass in C at the reference's own loop cost
+        ap0 = (p.aFstart if p.aFstart is not None
+               else np.arange(M, dtype=np.int32))
+        aq0 = (q.aFstart if q.aFstart is not None
+               else np.arange(M, dtype=np.int32))
+        res = native.gtcompare_core(p.yz, q.yz, M, N, ap0, aq0, rf, ii,
+                                    fbound)
+        if res is not None:
+            n, ns9c, fsum, nsum, isum, ni = res
+            ns = np.zeros((p.M, 9), dtype=np.int64)
+            ns[0::2] = ns9c
+            _genotype_compare_report(p, is_ref_freq, is_dosage, n, ns,
+                                     fsum, nsum, isum, ni, nd, nd1)
+            return
+    Xp_d = None if stream else p.haplotypes()
+    Xq_d = None if stream else q.haplotypes()
+    ap = (p.aFstart if p.aFstart is not None
+          else np.arange(M, dtype=np.int32))
+    aq = (q.aFstart if q.aFstart is not None
+          else np.arange(M, dtype=np.int32))
+    posp = posq = 0
+    n = np.zeros(17 * 9, dtype=np.int64)
+    ns9 = np.zeros((9, M // 2), dtype=np.int64)
+    fsum = np.zeros(17)
+    nsum = np.zeros(17, np.int64)
+    isum = np.zeros(17)
+    ni = np.zeros(17, np.int64)
+    Xp_cols = [] if is_dosage else None
+    for k0 in range(0, N, chunk):
+        nc = min(chunk, N - k0)
+        if stream:
+            Xpc, ap, onesc, posp = native.natural_cols(p.yz, nc, M, ap,
+                                                       start=posp,
+                                                       with_pos=True)
+            Xqc, aq, _, posq = native.natural_cols(q.yz, nc, M, aq,
+                                                   start=posq,
+                                                   with_pos=True)
+        else:
+            Xpc = np.ascontiguousarray(Xp_d[:, k0:k0 + nc].T)
+            Xqc = np.ascontiguousarray(Xq_d[:, k0:k0 + nc].T)
+            onesc = Xpc.sum(axis=1, dtype=np.int64)
+        f_arr = np.where(rf[k0:k0 + nc] != 0.0, rf[k0:k0 + nc],
+                         onesc / float(M))
+        # first ff with f*100 <= F_BOUND[ff] == the reference's walk
+        ff = np.searchsorted(fbound, f_arr * 100.0, side="left")
+        fsum += np.bincount(ff, weights=f_arr * 100.0, minlength=17)
+        nsum += np.bincount(ff, minlength=17)
+        im = ii[k0:k0 + nc] < 1.0
+        isum += np.bincount(ff[im], weights=ii[k0:k0 + nc][im],
+                            minlength=17)
+        ni += np.bincount(ff[im], minlength=17)
+        i9 = 3 * (Xpc[:, 0::2] + Xpc[:, 1::2]) \
+            + (Xqc[:, 0::2] + Xqc[:, 1::2])           # (nc, M/2) uint8
+        key = ff.astype(np.uint8)[:, None] * 9 + i9   # ff*9+i9 <= 152
+        n += np.bincount(key.ravel(), minlength=17 * 9)
+        for v in range(9):
+            ns9[v] += (i9 == v).sum(axis=0)
+        if is_dosage:
+            Xp_cols.append(Xpc.copy())
+    n = n.reshape(17, 9)
+    ns = np.zeros((p.M, 9), dtype=np.int64)
+    ns[0::2] = ns9.T
+
+    if is_dosage:
+        Xp_nat = np.concatenate(Xp_cols)              # (N, M) site-major
+        Yp = p.decoded(True)
+        a = p.aFstart.copy()
+        for k in range(p.N):
+            dos = dosage_retrieve(p, Yp[k], k)
+            dos_nat = np.empty(p.M)
+            dos_nat[a] = dos
+            ids = np.where(dos_nat == 0.0, 0,
+                           np.where(dos_nat == 1.0, 11,
+                                    1 + (dos_nat * 10.0).astype(np.int64)))
+            np.add.at(nd, ids, 1)
+            np.add.at(nd1, ids[Xp_nat[k] == 1], 1)
+            a = engine.forwards_a(a, Yp[k])
+
+    _genotype_compare_report(p, is_ref_freq, is_dosage, n, ns, fsum,
+                             nsum, isum, ni, nd, nd1)
+
+
+def _genotype_compare_report(p, is_ref_freq, is_dosage, n, ns, fsum,
+                             nsum, isum, ni, nd, nd1) -> None:
+    """The r2 tables + per-sample accuracy distribution + dosage table
+    (pbwtImpute.c:1441-1487)."""
+    out = sys.stdout
+    if is_ref_freq:
+        out.write("Genotype comparison results split on reference frequencies\n")
+    else:
+        out.write("Genotype comparison results split on sample frequencies\n")
+    for ff in range(17):
+        row = n[ff]
+        tot = row.sum()
+        out.write(f"{F_BOUND[ff]:<5.1f}\t"
+                  f"{(fsum[ff] / nsum[ff]) if nsum[ff] else 0.0:<7.3f}")
+        for i in range(9):
+            out.write(f"\t{row[i]} ")
+        if tot:
+            xbar = (row[3] + row[4] + row[5] + 2 * (row[6] + row[7] + row[8])) / tot
+            x2 = (row[3] + row[4] + row[5] + 4 * (row[6] + row[7] + row[8])) / tot
+            ybar = (row[1] + row[4] + row[7] + 2 * (row[2] + row[5] + row[8])) / tot
+            y2 = (row[1] + row[4] + row[7] + 4 * (row[2] + row[5] + row[8])) / tot
+            from ..utils import c_f
+            r2 = (row[4] + 2 * (row[5] + row[7]) + 4 * row[8]) / tot
+            denom = math.sqrt((x2 - xbar * xbar) * (y2 - ybar * ybar))
+            r2 = (r2 - xbar * ybar) / denom if denom else float("nan")
+            out.write(f"\tx,y,r2\t{xbar:.4f}\t{ybar:.4f}\t{c_f(r2)}")
+            if ni[ff]:
+                out.write(f"\t info {isum[ff] / ni[ff]:.4f}")
+        out.write("\n")
+
+    hist = np.zeros(101, dtype=np.int64)
+    for j in range(0, p.M, 2):
+        row = ns[j]
+        tot = row.sum()
+        if tot:
+            xbar = (row[3] + row[4] + row[5] + 2 * (row[6] + row[7] + row[8])) / tot
+            x2 = (row[3] + row[4] + row[5] + 4 * (row[6] + row[7] + row[8])) / tot
+            ybar = (row[1] + row[4] + row[7] + 2 * (row[2] + row[5] + row[8])) / tot
+            y2 = (row[1] + row[4] + row[7] + 4 * (row[2] + row[5] + row[8])) / tot
+            r2 = (row[4] + 2 * (row[5] + row[7]) + 4 * row[8]) / tot
+            denom = math.sqrt((x2 - xbar * xbar) * (y2 - ybar * ybar))
+            r2 = (r2 - xbar * ybar) / denom if denom else 0.0
+            if r2 < 0:
+                r2 = 0
+            hist[int(100 * r2)] += 1
+    out.write("Genotype accuracy distribution across samples\n")
+    if hist[100]:
+        out.write(f"{hist[100]} samples with r2 == 1.0\n")
+    for i in range(99, -1, -1):
+        if hist[i]:
+            out.write(f"{hist[i]} samples with {(i - 1) * 0.01:.2f} <= r2 < "
+                      f"{i * 0.01:.2f}\n")
+    if is_dosage:
+        out.write("Dosage accuracy (currently at haplotype level)\n")
+        out.write(f"0.00  {nd1[0] / nd[0] if nd[0] else 0.0:.3f}  {nd[0]}\n")
+        for i in range(1, 11):
+            out.write(f"{0.1 * (i - 0.5):.2f}  "
+                      f"{nd1[i] / nd[i] if nd[i] else 0.0:.3f}  {nd[i]}\n")
+        out.write(f"1.00  {nd1[11] / nd[11] if nd[11] else 0.0:.3f}  {nd[11]}\n")
+
+
+# --------------------------------------------------------------------------
+# data corruption / simulation (pbwtImpute.c:1492-1619)
+# --------------------------------------------------------------------------
+
+def _corrupt_finish(p_new: PBWT, p_old: PBWT, u_new: engine.WriteCursor) -> PBWT:
+    """Adopt sites/chrom/samples from pOld exactly as the reference transfers
+    them (pbwtImpute.c:1530-1533)."""
+    p_new.yz = u_new.packed()
+    p_new.aFend = u_new.a.copy()
+    p_new.sites = p_old.sites
+    p_new.chrom = p_old.chrom
+    return p_new
+
+
+def corrupt_sites(p_old: PBWT, p_site: float, p_change: float) -> PBWT:
+    """pbwtCorruptSites (pbwtImpute.c:1492-1537).
+
+    Bit-reproducible vs the reference binary: draws come from the glibc
+    rand() stream (unseeded == srand(1)) and corruption is applied at
+    positions in the NEW cursor's sort order, exactly as the reference's
+    ``uNew->y[i]`` loop does.
+    """
+    if not p_old.yz:
+        raise ValueError("corruptSites without an existing pbwt")
+    if not (0 < p_site <= 1) or not (0 < p_change <= 1):
+        raise ValueError(f"pSite {p_site}, pChange {p_change} out of range")
+    M, N = p_old.M, p_old.N
+    rnd = crand.rand
+    r_site = int(p_site * crand.RAND_MAX)
+    r_change = int(p_change * crand.RAND_MAX)
+    r_fac = crand.RAND_MAX / M
+    a0 = (p_old.aFstart if p_old.aFstart is not None
+          else np.arange(M, dtype=np.int32))
+    res = native.corrupt_sites_core(p_old.yz, M, N, a0,
+                                    r_site, r_change, r_fac)
+    if res is not None:
+        p_new = PBWT(M, N)
+        p_new.yz, p_new.aFend, n_change = res
+        p_new.sites = p_old.sites
+        p_new.chrom = p_old.chrom
+        p_new.samples = p_old.samples
+        log(f"corruptSites with pSite {p_site:f}, pChange {p_change:f} "
+            f"changes {n_change / (N * M):.4f} of values")
+        return p_new
+    u_old = engine.ReadCursor.create(p_old, True, True)
+    u_new = engine.WriteCursor(M)
+    n_change = 0
+    for k in range(N):
+        x = u_old.x_natural()
+        y = x[u_new.a]
+        if rnd() < r_site:
+            thresh = u_old.c * r_fac
+            for i in range(M):
+                if rnd() < r_change:
+                    old = y[i]
+                    y[i] = 0 if rnd() < thresh else 1
+                    if y[i] != old:
+                        n_change += 1
+        u_new.write_forwards(y)
+        u_old.forwards_read()
+    p_new = _corrupt_finish(PBWT(M, N), p_old, u_new)
+    p_new.samples = p_old.samples
+    log(f"corruptSites with pSite {p_site:f}, pChange {p_change:f} changes "
+        f"{n_change / (N * M):.4f} of values")
+    return p_new
+
+
+def corrupt_samples(p_old: PBWT, p_sample: float, p_change: float) -> PBWT:
+    """pbwtCorruptSamples (pbwtImpute.c:1539-1584).  Note the reference's
+    isCorrupt[] is indexed by position in the new cursor's sort order, not
+    by haplotype id — reproduced as-is for bit parity."""
+    if not p_old.yz:
+        raise ValueError("corruptSites without an existing pbwt")
+    if not (0 < p_sample <= 1) or not (0 < p_change <= 1):
+        raise ValueError(f"pSample {p_sample}, pChange {p_change} out of range")
+    M, N = p_old.M, p_old.N
+    rnd = crand.rand
+    r_sample = int(p_sample * crand.RAND_MAX)
+    r_change = int(p_change * crand.RAND_MAX)
+    r_fac = crand.RAND_MAX / M
+    a0 = (p_old.aFstart if p_old.aFstart is not None
+          else np.arange(M, dtype=np.int32))
+    res = native.corrupt_samples_core(p_old.yz, M, N, a0,
+                                      r_sample, r_change, r_fac)
+    if res is not None:
+        p_new = PBWT(M, N)
+        p_new.yz, p_new.aFend, n_change = res
+        p_new.sites = p_old.sites
+        p_new.chrom = p_old.chrom
+        p_new.samples = p_old.samples
+        log(f"corruptSamples with pSample {p_sample:f}, pChange "
+            f"{p_change:f} changes {n_change / (N * M):.4f} of values")
+        return p_new
+    u_old = engine.ReadCursor.create(p_old, True, True)
+    u_new = engine.WriteCursor(M)
+    is_corrupt = [rnd() < r_sample for _ in range(M)]
+    n_change = 0
+    for k in range(N):
+        x = u_old.x_natural()
+        y = x[u_new.a]
+        thresh = u_old.c * r_fac
+        for i in range(M):
+            if is_corrupt[i] and rnd() < r_change:
+                v = 0 if rnd() < thresh else 1
+                if v != y[i]:
+                    n_change += 1
+                y[i] = v
+        u_new.write_forwards(y)
+        u_old.forwards_read()
+    p_new = _corrupt_finish(PBWT(M, N), p_old, u_new)
+    p_new.samples = p_old.samples
+    log(f"corruptSamples with pSample {p_sample:f}, pChange {p_change:f} changes "
+        f"{n_change / (N * M):.4f} of values")
+    return p_new
+
+
+def copy_samples(p_old: PBWT, m_new: int, mean_length: float) -> PBWT:
+    """Li-Stephens mosaic simulator (pbwtCopySamples, pbwtImpute.c:1586-1619).
+
+    The reference switches copy[j] indexed by sort-order position j but reads
+    through copy[uNew->a[j]] (natural id) — an inconsistency we reproduce for
+    bit parity.  The reference also moves the old samples array across even
+    though its length no longer matches Mnew; reproduced as-is."""
+    if not p_old.yz:
+        raise ValueError("copySamples called without an existing pbwt")
+    if mean_length < 1.0:
+        raise ValueError(f"meanLength {mean_length} must be > 1 in pbwtCopySamples")
+    M_old, N = p_old.M, p_old.N
+    rnd = crand.rand
+    r_switch = int(crand.RAND_MAX / mean_length)
+    a0 = (p_old.aFstart if p_old.aFstart is not None
+          else np.arange(M_old, dtype=np.int32))
+    res = native.copy_samples_core(p_old.yz, M_old, N, a0, m_new, r_switch)
+    if res is not None:
+        p_new = PBWT(m_new, N)
+        p_new.yz, p_new.aFend, _ = res
+        p_new.sites = p_old.sites
+        p_new.chrom = p_old.chrom
+        p_new.samples = p_old.samples
+        log(f"copySamples made {m_new} samples with mean switch length "
+            f"{mean_length:.1f}")
+        return p_new
+    u_old = engine.ReadCursor.create(p_old, True, True)
+    u_new = engine.WriteCursor(m_new)
+    copy = np.array([rnd() % M_old for _ in range(m_new)], dtype=np.int64)
+    y = np.empty(m_new, dtype=np.uint8)
+    for k in range(N):
+        x_old = u_old.x_natural()
+        for j in range(m_new):
+            if rnd() < r_switch:
+                copy[j] = rnd() % M_old
+        y[:] = x_old[copy[u_new.a]]
+        u_new.write_forwards(y)
+        u_old.forwards_read()
+    p_new = _corrupt_finish(PBWT(m_new, N), p_old, u_new)
+    p_new.samples = p_old.samples
+    log(f"copySamples made {m_new} samples with mean switch length {mean_length:.1f}")
     return p_new

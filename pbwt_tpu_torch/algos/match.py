@@ -1,6 +1,6 @@
 """Within-panel matching (-maxWithin, -longWithin) on the host, and
-query-vs-panel matching (-matchIndexed, -matchDynamic) on the host and on
-the port's DeviceMatcher (pbwtMatch.c).
+query-vs-panel matching (-matchNaive on the host; -matchIndexed,
+-matchDynamic on the host and on the port's DeviceMatcher) (pbwtMatch.c).
 
 Counterpart of ``pbwt_tpu/algos/match.py``. The within-panel matchers are
 the host's C scans, with numpy routes without the C runtime; painting and
@@ -305,6 +305,51 @@ def _report_rows(rows: np.ndarray, report) -> None:
             return
     for a, b, s, e in rows.tolist():
         report(a, b, s, e)
+
+
+def match_sequences_naive(p: PBWT, q: PBWT, report=report_match_stdout) -> None:
+    """O(NMQ) haplotype-space matcher (matchSequencesNaive, pbwtMatch.c:194-248).
+    Reports one representative maximal match (lowest reference index)."""
+    if q.N != p.N:
+        raise ValueError(f"query length {q.N} != PBWT length {p.N}")
+    query = q.haplotypes()
+    reference = p.haplotypes()
+    N = p.N
+    n_tot, tot_len = 0, 0
+    for j in range(q.M):
+        x = query[j]
+        # for each reference, mismatch positions give maximal match intervals
+        best_end = np.zeros(N + 1, dtype=np.int64)
+        best_seq = np.zeros(N + 1, dtype=np.int64)
+        best_end[N] = N + 1
+        for i in range(p.M):
+            neq = np.flatnonzero(x != reference[i])
+            k_last = N
+            # process mismatches from the right
+            for kk in range(len(neq) - 1, -1, -1):
+                k = int(neq[kk])
+                if k_last > best_end[k + 1]:
+                    m = k + 1
+                    while best_end[m] <= k_last:
+                        best_end[m] = k_last
+                        best_seq[m] = i
+                        m += 1
+                k_last = k
+            if k_last > best_end[0]:
+                m = 0
+                while best_end[m] <= k_last:
+                    best_end[m] = k_last
+                    best_seq[m] = i
+                    m += 1
+        i_best = p.M
+        for k in range(N):
+            if best_seq[k] != i_best:
+                i_best = int(best_seq[k])
+                report(j, i_best, k, int(best_end[k]))
+                n_tot += 1
+                tot_len += int(best_end[k]) - k
+    log(f"Average number of best matches {n_tot / q.M:.1f}, "
+        f"Average length {tot_len / n_tot:.1f}")
 
 
 def match_sequences_indexed(p: PBWT, q: PBWT, report=report_match_stdout,

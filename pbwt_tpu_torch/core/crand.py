@@ -62,9 +62,21 @@ _global = GlibcRand(1)
 
 
 def rand() -> int:
-    """The process-global stream, mirroring C's global rand() state."""
+    """The process-global stream, mirroring C's global rand() state.
+
+    Delegates to the native library's stream when it is loaded, since the
+    corruption cores (csrc/pbwt_native.c corrupt_*_core) consume from
+    that same state — one stream per process, like libc."""
+    from . import native
+    lib = native.get_lib()
+    if lib is not None:
+        return lib.crand_next()
     return _global.next()
 
 
 def reset(seed: int = 1) -> None:
+    from . import native
+    lib = native.get_lib()
+    if lib is not None:
+        lib.crand_srand(seed)
     _global.seed(seed)

@@ -318,6 +318,10 @@ class WriteCursor:
 # whole-matrix construction (vectorised over sites on the host)
 # --------------------------------------------------------------------------
 
+# hap-sites above which build_from_haplotypes takes the device engine
+DEVICE_HAP_SITES = 1 << 20
+
+
 def build_from_haplotypes(X: np.ndarray, a_init: np.ndarray | None = None
                           ) -> tuple[bytes, np.ndarray]:
     """Build packed PBWT from an (M, N) haplotype matrix.
@@ -331,7 +335,7 @@ def build_from_haplotypes(X: np.ndarray, a_init: np.ndarray | None = None
     a = np.arange(M, dtype=np.int32) if a_init is None else np.asarray(a_init, np.int32).copy()
 
     from ..ops import device_requested
-    if device_requested() and a_init is None and M * N > 1 << 20:
+    if device_requested() and a_init is None and M * N > DEVICE_HAP_SITES:
         # route large builds through the device engine (byte-identical; see
         # tests/test_torch_host.py)
         from ..ops.build import build_pbwt_device

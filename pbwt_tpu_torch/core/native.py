@@ -179,6 +179,44 @@ def _load():
     lib.format_f4_row.argtypes = [f64p, L, ctypes.c_char_p]
     lib.format_f4_rows.restype = L
     lib.format_f4_rows.argtypes = [f64p, L, L, ctypes.c_char_p, i64p]
+    lib.phase_resolve.restype = None
+    lib.phase_resolve.argtypes = [f64p, L, L, L, i32p, i32p, f64p, f64p,
+                                  ctypes.c_double]
+    lib.phase_stop_max.restype = None
+    lib.phase_stop_max.argtypes = [i32p, u8p, ctypes.c_int, L, i64p, i64p]
+    lib.ref_phase4_core.restype = L
+    lib.ref_phase4_core.argtypes = [u8p, L, L, u8p, L, L, L, i32p, i32p,
+                                    i64p]
+    lib.ref_phase4_heap.restype = None
+    lib.ref_phase4_heap.argtypes = [i32p, u8p]
+    lib.phase_sweep_core.restype = L
+    lib.phase_sweep_core.argtypes = [u8p, L, L, L, i32p, L, u8p, L, i32p,
+                                     i32p, L, i32p, L, f64p,
+                                     ctypes.c_double, u8p, L, i32p, i32p]
+    lib.crand_srand.restype = None
+    lib.crand_srand.argtypes = [ctypes.c_uint32]
+    lib.crand_next.restype = L
+    lib.crand_next.argtypes = []
+    lib.corrupt_sites_core.restype = L
+    lib.corrupt_sites_core.argtypes = [u8p, L, L, L, i32p, L, L,
+                                       ctypes.c_double, u8p, L, i32p, i64p]
+    lib.corrupt_samples_core.restype = L
+    lib.corrupt_samples_core.argtypes = [u8p, L, L, L, i32p, L, L,
+                                         ctypes.c_double, u8p, L, i32p,
+                                         i64p]
+    lib.copy_samples_core.restype = L
+    lib.copy_samples_core.argtypes = [u8p, L, L, L, i32p, L, L, u8p, L,
+                                      i32p, i64p]
+    lib.merge_core.restype = L
+    lib.merge_core.argtypes = [L, ctypes.POINTER(ctypes.c_void_p), i64p,
+                               i64p, i64p, u8p, i64p, i32p, L, i32p, u8p, L]
+    lib.gtcompare_core.restype = L
+    lib.gtcompare_core.argtypes = [u8p, L, u8p, L, L, L, i32p, i32p,
+                                   f64p, f64p, f64p, L, i64p, i64p,
+                                   f64p, i64p, f64p, i64p]
+    lib.phase_compare_core.restype = L
+    lib.phase_compare_core.argtypes = [u8p, L, u8p, L, L, L, i32p, i32p,
+                                       i64p, i64p, i64p]
     _lib = lib
     return _lib
 
@@ -335,6 +373,199 @@ def build_reverse_core(yz: bytes, M: int, N: int, aFend: np.ndarray):
         if n <= cap:
             return zz[:n].tobytes(), arend
         cap = int(n)
+
+
+def _corrupt_call(fn_name, yzold: bytes, M: int, N: int, a0: np.ndarray,
+                  args: tuple, M_new: int | None = None):
+    lib = get_lib()
+    if lib is None:
+        return None
+    z = np.frombuffer(bytes(yzold), np.uint8)
+    Mout = M_new if M_new is not None else M
+    cap = N * (Mout + 8) + 16
+    yz = pooled(cap, "corrupt_yz")
+    a_end = np.empty(Mout, np.int32)
+    lens = np.empty(1, np.int64)
+    rc = getattr(lib, fn_name)(z, len(z), M, N,
+                               np.ascontiguousarray(a0, np.int32),
+                               *args, yz, cap, a_end, lens)
+    if rc < 0:
+        raise ValueError(f"{fn_name}: corrupt stream or overflow")
+    return yz[:lens[0]].tobytes(), a_end, int(rc)
+
+
+def corrupt_sites_core(yzold, M, N, a0, r_site, r_change, r_fac):
+    """pbwtCorruptSites streaming core; (yz, a_end, n_change) or None."""
+    return _corrupt_call("corrupt_sites_core", yzold, M, N, a0,
+                         (r_site, r_change, float(r_fac)))
+
+
+def corrupt_samples_core(yzold, M, N, a0, r_sample, r_change, r_fac):
+    """pbwtCorruptSamples streaming core; (yz, a_end, n_change) or None."""
+    return _corrupt_call("corrupt_samples_core", yzold, M, N, a0,
+                         (r_sample, r_change, float(r_fac)))
+
+
+def copy_samples_core(yzold, M_old, N, a0, m_new, r_switch):
+    """pbwtCopySamples streaming core; (yz, a_end, 0) or None."""
+    return _corrupt_call("copy_samples_core", yzold, M_old, N, a0,
+                         (m_new, r_switch), M_new=m_new)
+
+
+def phase_sweep_core(yzp: bytes, M: int, N: int, ap0: np.ndarray,
+                     is_start: bool, r_yz: bytes | None, ar0, rbinv0,
+                     aq0, n_sparse: int, score_bit: np.ndarray,
+                     thresh: float):
+    """One whole phaseSweep pass (pbwtImpute.c:288-372) in C.
+
+    Returns (yz bytes, aq_end, bq_end) or None when the native library is
+    unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    zp = np.frombuffer(bytes(yzp), np.uint8)
+    zr = np.frombuffer(bytes(r_yz) if r_yz else b"\x00", np.uint8)
+    dummy = np.zeros(1, np.int32)
+    ap0 = np.ascontiguousarray(ap0, np.int32)
+    ar0 = (np.ascontiguousarray(ar0, np.int32) if ar0 is not None
+           else dummy)
+    rbinv0 = (np.ascontiguousarray(rbinv0, np.int32) if rbinv0 is not None
+              else dummy)
+    aq0 = (np.ascontiguousarray(aq0, np.int32) if aq0 is not None
+           else np.arange(M, dtype=np.int32))
+    cap = N * (M + 8) + 16
+    yz = pooled(cap, "phase_sweep_yz")
+    aq_end = np.empty(M, np.int32)
+    bq_end = np.empty(M, np.int32)
+    n = lib.phase_sweep_core(
+        zp, len(zp), M, N, ap0, 1 if is_start else 0,
+        zr, len(zr), ar0, rbinv0, 1 if r_yz else 0,
+        aq0, n_sparse, np.ascontiguousarray(score_bit, np.float64),
+        float(thresh), yz, cap, aq_end, bq_end)
+    if n < 0:
+        raise ValueError("phase_sweep_core: corrupt stream or overflow")
+    return yz[:n].tobytes(), aq_end, bq_end
+
+
+def ref_phase4_core(yzold: bytes, Mold: int, yzref: bytes, Mref: int,
+                    N: int, aold0: np.ndarray, aref0: np.ndarray):
+    """The referencePhase4 forward lattice (pbwtImpute.c:905-1005) as one
+    streaming C pass.  Returns (tb int64[n_pairs] — the traceback root of
+    each diploid's best final cell — tb_parent int32[n], tb_value uint8[n])
+    or None when the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    bo = np.frombuffer(bytes(yzold), np.uint8)
+    br = np.frombuffer(bytes(yzref), np.uint8)
+    n_pairs = Mold // 2
+    tb = np.empty(n_pairs, np.int64)
+    n = lib.ref_phase4_core(bo, len(bo), Mold, br, len(br), Mref, N,
+                            np.ascontiguousarray(aold0, np.int32),
+                            np.ascontiguousarray(aref0, np.int32), tb)
+    if n < 0:
+        raise ValueError("ref_phase4_core: corrupt pack3 stream")
+    parent = np.empty(n, np.int32)
+    value = np.empty(n, np.uint8)
+    lib.ref_phase4_heap(parent, value)
+    return tb, parent, value
+
+
+def merge_core(yzs: list[bytes], Ms: list[int], a0s: list[np.ndarray],
+               acts: list[np.ndarray], n_emit: int):
+    """Multi-PBWT merge (pbwtMerge.c:129-208) as one streaming C pass.
+
+    yzs/Ms/a0s: per input file, the pack3 stream, haplotype count and
+    starting prefix array; acts[f] is the file's action stream over its
+    consumed columns in order (1 = column of an emitted shared site,
+    0 = discard) with exactly n_emit ones.  Returns (yz, a_end) for the
+    merged PBWT, or None when the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    nf = len(yzs)
+    Mtot = int(sum(Ms))
+    # zero-copy input streams: per-file pointers into the caller's own
+    # bytes objects (kept alive by `views` for the duration of the call)
+    views = [np.frombuffer(z, np.uint8) for z in yzs]
+    ptrs = (ctypes.c_void_p * nf)(*[v.ctypes.data for v in views])
+    nzs = np.asarray([len(v) for v in views], np.int64)
+    Ms_arr = np.asarray(Ms, np.int64)
+    a_off = np.zeros(nf + 1, np.int64)
+    np.cumsum(Ms_arr, out=a_off[1:])
+    a_all = np.concatenate([np.ascontiguousarray(a, np.int32)
+                            for a in a0s])
+    act_all = np.concatenate([np.ascontiguousarray(a, np.uint8)
+                              for a in acts]) if acts else np.zeros(0, np.uint8)
+    act_off = np.zeros(nf + 1, np.int64)
+    np.cumsum([len(a) for a in acts], out=act_off[1:])
+    a_out = np.arange(Mtot, dtype=np.int32)
+    # shared emitted sites re-encode to about their input footprint; the
+    # retry loop covers the pathological case
+    cap = int(nzs.sum() + 32 * n_emit + 65536)
+    while True:
+        yz_out = np.empty(cap, np.uint8)
+        n = lib.merge_core(nf, ptrs, nzs, Ms_arr, a_off, act_all,
+                           act_off, a_all.copy(), n_emit, a_out, yz_out, cap)
+        if n < 0:
+            raise ValueError("merge_core: corrupt pack3 stream")
+        if n <= cap:
+            return yz_out[:n].tobytes(), a_out
+        cap = int(n)
+        a_out = np.arange(Mtot, dtype=np.int32)
+
+
+def phase_compare_core(yzp: bytes, yzq: bytes, M: int, N: int,
+                       ap0: np.ndarray, aq0: np.ndarray):
+    """phaseCompare's per-pair switch scan as one streaming C pass.
+    Returns (n_switch, n_het, n_switch1, n_switch5, n_switch_sample,
+    n_switch_site) or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    bp = np.frombuffer(bytes(yzp), np.uint8)
+    bq = np.frombuffer(bytes(yzq), np.uint8)
+    out4 = np.zeros(4, np.int64)
+    nss = np.zeros(M // 2, np.int64)
+    nsk = np.zeros(N, np.int64)
+    if lib.phase_compare_core(bp, len(bp), bq, len(bq), M, N,
+                              np.ascontiguousarray(ap0, np.int32),
+                              np.ascontiguousarray(aq0, np.int32),
+                              out4, nss, nsk) < 0:
+        raise ValueError("phase_compare_core: corrupt pack3 stream")
+    return (int(out4[0]), int(out4[1]), int(out4[2]), int(out4[3]),
+            nss, nsk)
+
+
+def gtcompare_core(yzp: bytes, yzq: bytes, M: int, N: int,
+                   ap0: np.ndarray, aq0: np.ndarray, rf: np.ndarray,
+                   ii: np.ndarray, fbound: np.ndarray):
+    """genotypeCompare counting (pbwtImpute.c:1398-1438) as one streaming
+    C pass over both packed panels.  Returns (n (17, 9), ns9 (M//2, 9),
+    fsum, nsum, isum, ni) or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    bp = np.frombuffer(bytes(yzp), np.uint8)
+    bq = np.frombuffer(bytes(yzq), np.uint8)
+    nb = len(fbound)
+    n = np.zeros(nb * 9, np.int64)
+    ns9 = np.zeros((M // 2) * 9, np.int64)
+    fsum = np.zeros(nb)
+    nsum = np.zeros(nb, np.int64)
+    isum = np.zeros(nb)
+    ni = np.zeros(nb, np.int64)
+    rc = lib.gtcompare_core(bp, len(bp), bq, len(bq), M, N,
+                            np.ascontiguousarray(ap0, np.int32),
+                            np.ascontiguousarray(aq0, np.int32),
+                            np.ascontiguousarray(rf, np.float64),
+                            np.ascontiguousarray(ii, np.float64),
+                            np.ascontiguousarray(fbound, np.float64), nb,
+                            n, ns9, fsum, nsum, isum, ni)
+    if rc < 0:
+        raise ValueError("gtcompare_core: corrupt pack3 stream")
+    return (n.reshape(nb, 9), ns9.reshape(M // 2, 9), fsum, nsum, isum,
+            ni)
 
 
 def segs_sort(rows: np.ndarray, T: int):

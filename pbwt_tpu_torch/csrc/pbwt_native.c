@@ -10,7 +10,16 @@
  * matchers (-maxWithin, -longWithin) and their bucketed collector, the
  * repack and natural-order streams, the reverse build, reference
  * imputation's segment sorts, streaming vote-and-emit pass and output
- * stage, and painting's accumulators and table formatter.
+ * stage, painting's accumulators and table formatter, the phasing cores
+ * (phaseSweep, referencePhase4), the glibc rand() stream with the
+ * corruption and copy cores that draw from it, the merge, and the
+ * genotype and phase comparisons.
+ *
+ * Built with -ffp-contract=off.  The phasing cores' products are exact
+ * (+-1 times a small integer), so a contracting build gives the same
+ * bits; gtcompare_core's f * 100.0 is rounded before its sum, as a
+ * contracting build of the same loop also rounds it (the product has a
+ * second use in the bin walk).
  *
  * Conventions: columns are site-major uint8 arrays of M values in current
  * sort order; prefix arrays are int32; report buffers are int64 quadruples.
@@ -1470,4 +1479,878 @@ EXPORT long format_f4_rows(const double *v, long R, long C,
     }
     offs[R] = p;
     return p;
+}
+
+/* ------------------------------------------------------------------ */
+/* phasing helpers (phaseSweep, referencePhase4)                       */
+/* ------------------------------------------------------------------ */
+
+/* phaseSweep het resolution (pbwtImpute.c:288-372): iterative
+   Gauss-Seidel passes over sample pairs scoring sort-order neighbours
+   in ncur cursors (score0), threshold decay, then the length-weighted
+   score1 fallback over the first n1cur cursors. aL/aR[-1] = absent.
+   xp is mutated in place. */
+EXPORT void phase_resolve(double *xp, long M, long ncur, long n1cur,
+                          const int32_t *aL, const int32_t *aR,
+                          const double *wL, const double *wR,
+                          double thresh)
+{
+    long n2 = 0;
+    for (long i = 0; i < M; i += 2) if (xp[i] == 0.0) ++n2;
+    while (n2 && thresh > 1.0) {
+        long n2_old = n2;
+        n2 = 0;
+        for (long i = 0; i < M; i += 2) {
+            if (xp[i] != 0.0) continue;
+            double s = 0.0;
+            for (long c = 0; c < ncur; ++c) {
+                const int32_t *l = aL + c * M, *r = aR + c * M;
+                double si = 0.0, sj = 0.0;
+                int32_t v;
+                if ((v = l[i]) >= 0) si += xp[v];
+                if ((v = r[i]) >= 0) si += xp[v];
+                if ((v = l[i + 1]) >= 0) sj += xp[v];
+                if ((v = r[i + 1]) >= 0) sj += xp[v];
+                s += si - sj;
+            }
+            if (s > thresh) { xp[i] = 1.0; xp[i + 1] = -1.0; }
+            else if (s < -thresh) { xp[i] = -1.0; xp[i + 1] = 1.0; }
+            else ++n2;
+        }
+        if (n2 == n2_old) thresh -= 1.0;
+    }
+    if (n2) {
+        for (long i = 0; i < M; i += 2) {
+            if (xp[i] != 0.0) continue;
+            double s = 0.0;
+            for (long c = 0; c < n1cur; ++c) {
+                const int32_t *l = aL + c * M, *r = aR + c * M;
+                const double *lw = wL + c * M, *rw = wR + c * M;
+                double si = 0.0, sj = 0.0;
+                int32_t v;
+                if ((v = l[i]) >= 0) si += xp[v] * lw[i];
+                if ((v = r[i]) >= 0) si += xp[v] * rw[i];
+                if ((v = l[i + 1]) >= 0) sj += xp[v] * lw[i + 1];
+                if ((v = r[i + 1]) >= 0) sj += xp[v] * rw[i + 1];
+                s += si - sj;
+            }
+            if (s > 0) { xp[i] = 1.0; xp[i + 1] = -1.0; }
+            else { xp[i] = -1.0; xp[i + 1] = 1.0; }
+        }
+    }
+}
+
+/* EXTEND4 reference-phasing helpers (pbwtImpute.c:848-901): segmented
+   running maxima of the divergence array that stop at the nearest
+   position with allele x (the values pbwtCursorMapDplus/Dminus would
+   accumulate). -1 marks "no accumulation". */
+EXPORT void phase_stop_max(const int32_t *d, const uint8_t *y, int x, long M,
+                           int64_t *bp, int64_t *bm)
+{
+    bp[M] = -1;
+    for (long i = M - 1; i >= 0; --i) {
+        if (y[i] != x) {
+            int64_t prev = bp[i + 1];
+            int64_t di = d[i];
+            bp[i] = (prev >= 0 && prev > di) ? prev : di;
+        } else bp[i] = -1;
+    }
+    bm[0] = -1;
+    for (long i = 1; i <= M; ++i) {
+        if (y[i - 1] != x) {
+            int64_t prev = bm[i - 1];
+            int64_t di = d[i - 1];
+            bm[i] = (prev >= 0 && prev > di) ? prev : di;
+        } else bm[i] = -1;
+    }
+}
+
+/* ------------------------------------------------------------------ */
+/* referencePhase4 lattice core (pbwtImpute.c:905-1005)                 */
+/* ------------------------------------------------------------------ */
+
+/* The whole forward lattice pass as one streaming C loop, matching the
+   batched-numpy implementation in algos/phase.py:reference_phase4 cell
+   for cell (which is itself crosschecked byte-identical against the
+   reference binary).  Per site: decode both pack3 columns, build the
+   rank table and the EXTEND4 stop-max arrays, extend every live cell of
+   every target diploid under both phase orders, keep the best arrival
+   per (pair, target) with first-arrival tie-breaking (j ascending,
+   phase 0 first), allocate traceback nodes for het winners in (pair,
+   target) order, then advance both cursors.  Live memory is O(Mref + T)
+   plus the lattice state; the traceback heap grows by realloc and is
+   fetched via ref_phase4_heap(). */
+
+static int32_t *rp4_parent = NULL;
+static uint8_t *rp4_value = NULL;
+static long rp4_n = 0, rp4_cap = 0;
+
+static long rp4_node(int32_t parent, uint8_t value)
+{
+    if (rp4_n == rp4_cap) {
+        rp4_cap = rp4_cap ? rp4_cap * 2 : (1 << 16);
+        rp4_parent = (int32_t *)realloc(rp4_parent, rp4_cap * sizeof(int32_t));
+        rp4_value = (uint8_t *)realloc(rp4_value, rp4_cap);
+    }
+    rp4_parent[rp4_n] = parent;
+    rp4_value[rp4_n] = value;
+    return rp4_n++;
+}
+
+static int rp4_cmp_i32(const void *a, const void *b)
+{
+    int32_t x = *(const int32_t *)a, y = *(const int32_t *)b;
+    return x < y ? -1 : x > y;
+}
+
+typedef struct {                 /* one lattice cell (PhaseCell analogue) */
+    float s;
+    int32_t j1, dp0, dm0, dp1, dm1, back;
+    uint8_t xa;                  /* winning first-hap allele (het nodes) */
+} RP4Cell;
+
+EXPORT long ref_phase4_core(const uint8_t *yzold, long nzold, long Mold,
+                            const uint8_t *yzref, long nzref, long Mref,
+                            long N, const int32_t *aold0,
+                            const int32_t *aref0, int64_t *tb_out)
+{
+    if (!p3dec_ready) p3dec_init();
+    long n_pairs = Mold / 2, Mc = Mref + 1, rc = -1;
+    long pos_old = 0, pos_ref = 0;
+
+    uint8_t *ys_old = (uint8_t *)malloc(Mold);
+    uint8_t *x_old = (uint8_t *)malloc(Mold);
+    uint8_t *ys = (uint8_t *)malloc(Mref);
+    int32_t *a_old = (int32_t *)malloc(Mold * sizeof(int32_t));
+    int32_t *a_ref = (int32_t *)malloc(Mref * sizeof(int32_t));
+    int32_t *d = (int32_t *)calloc(Mc, sizeof(int32_t));
+    int32_t *ones = (int32_t *)malloc(Mref * sizeof(int32_t));
+    int32_t *dones = (int32_t *)malloc(Mref * sizeof(int32_t));
+    int32_t *u = (int32_t *)malloc(Mc * sizeof(int32_t));
+    int64_t *bp0 = (int64_t *)malloc(Mc * sizeof(int64_t));
+    int64_t *bm0 = (int64_t *)malloc(Mc * sizeof(int64_t));
+    int64_t *bp1 = (int64_t *)malloc(Mc * sizeof(int64_t));
+    int64_t *bm1 = (int64_t *)malloc(Mc * sizeof(int64_t));
+    RP4Cell *src = (RP4Cell *)calloc(n_pairs * Mc, sizeof(RP4Cell));
+    RP4Cell *dst = (RP4Cell *)calloc(n_pairs * Mc, sizeof(RP4Cell));
+    int32_t *stamp = (int32_t *)malloc(n_pairs * Mc * sizeof(int32_t));
+    int32_t *live = (int32_t *)malloc(n_pairs * Mc * sizeof(int32_t));
+    int32_t *newlv = (int32_t *)malloc(Mc * sizeof(int32_t));
+    int32_t *nlive = (int32_t *)calloc(n_pairs, sizeof(int32_t));
+    int32_t *nlive2 = (int32_t *)calloc(n_pairs, sizeof(int32_t));
+    if (!src || !dst || !stamp || !live || !newlv) goto done;
+
+    memcpy(a_old, aold0, Mold * sizeof(int32_t));
+    memcpy(a_ref, aref0, Mref * sizeof(int32_t));
+    d[0] = 1; d[Mref] = 1;
+    for (long i = 0; i < n_pairs * Mc; ++i) stamp[i] = -1;
+    rp4_n = 0;
+    rp4_node(0, 0);                       /* root */
+    for (long pr = 0; pr < n_pairs; ++pr) {
+        src[pr * Mc].s = -1.0f;           /* cell j = 0 */
+        live[pr * Mc] = 0;
+        nlive[pr] = 1;
+    }
+
+    for (long k = 0; k < N; ++k) {
+        /* --- decode one column of each pbwt --- */
+        long m = 0;
+        while (m < Mold) {
+            if (pos_old >= nzold) goto done;
+            uint8_t b = yzold[pos_old++];
+            long n = p3dec[b & 0x7f];
+            if (m + n > Mold) goto done;
+            memset(ys_old + m, b >> 7, n);
+            m += n;
+        }
+        for (long i = 0; i < Mold; ++i) x_old[a_old[i]] = ys_old[i];
+        m = 0;
+        while (m < Mref) {
+            if (pos_ref >= nzref) goto done;
+            uint8_t b = yzref[pos_ref++];
+            long n = p3dec[b & 0x7f];
+            if (m + n > Mref) goto done;
+            memset(ys + m, b >> 7, n);
+            m += n;
+        }
+        /* rank table u[i] = zeros in ys[0..i) ; c = u[Mref] */
+        u[0] = 0;
+        for (long i = 0; i < Mref; ++i) u[i + 1] = u[i] + (ys[i] == 0);
+        long c = u[Mref];
+        phase_stop_max(d, ys, 0, Mref, bp0, bm0);
+        phase_stop_max(d, ys, 1, Mref, bp1, bm1);
+
+        for (long pr = 0; pr < n_pairs; ++pr) {
+            uint8_t x0 = x_old[2 * pr], x1 = x_old[2 * pr + 1];
+            int het = x0 != x1;
+            RP4Cell *srow = src + pr * Mc;
+            RP4Cell *drow = dst + pr * Mc;
+            int32_t *st = stamp + pr * Mc;
+            int32_t *lv = live + pr * Mc;
+            long nl = nlive[pr], nnew = 0;
+            for (long li = 0; li < nl; ++li) {
+                long j = lv[li];
+                RP4Cell *cell = srow + j;
+                for (int ph = 0; ph <= het; ++ph) {
+                    uint8_t xa = ph ? x1 : x0, xb = ph ? x0 : x1;
+                    long oj1 = cell->j1;
+                    int64_t bpa = xa ? bp1[j] : bp0[j];
+                    int64_t bma = xa ? bm1[j] : bm0[j];
+                    int64_t bpb = xb ? bp1[oj1] : bp0[oj1];
+                    int64_t bmb = xb ? bm1[oj1] : bm0[oj1];
+                    int32_t tdp0 = (bpa >= 0 && bpa > cell->dp0)
+                                   ? (int32_t)bpa : cell->dp0;
+                    int32_t tdm0 = (bma >= 0 && bma > cell->dm0)
+                                   ? (int32_t)bma : cell->dm0;
+                    int32_t tdp1 = (bpb >= 0 && bpb > cell->dp1)
+                                   ? (int32_t)bpb : cell->dp1;
+                    int32_t tdm1 = (bmb >= 0 && bmb > cell->dm1)
+                                   ? (int32_t)bmb : cell->dm1;
+                    double ds0 = 0.0, ds1 = 0.0;
+                    if (j > 0)
+                        ds0 += (ys[j - 1] == xa ? 1.0 : -1.0)
+                               * (double)(k - cell->dm0);
+                    if (j < Mref)
+                        ds0 += (ys[j] == xa ? 1.0 : -1.0)
+                               * (double)(k - cell->dp0);
+                    if (oj1 > 0)
+                        ds1 += (ys[oj1 - 1] == xb ? 1.0 : -1.0)
+                               * (double)(k - cell->dm1);
+                    if (oj1 < Mref)
+                        ds1 += (ys[oj1] == xb ? 1.0 : -1.0)
+                               * (double)(k - cell->dp1);
+                    float ts = cell->s;
+                    ts += (float)(ds0 < 0.0 ? ds0 : 0.0);
+                    ts += (float)(ds1 < 0.0 ? ds1 : 0.0);
+                    long tgt = xa ? c + j - u[j] : u[j];
+                    long nj1 = xb ? c + oj1 - u[oj1] : u[oj1];
+                    if (st[tgt] != (int32_t)k) {
+                        st[tgt] = (int32_t)k;
+                        newlv[nnew++] = (int32_t)tgt;
+                    } else if (!(ts > drow[tgt].s)) {
+                        continue;        /* first arrival wins ties */
+                    }
+                    drow[tgt].s = ts;
+                    drow[tgt].j1 = (int32_t)nj1;
+                    drow[tgt].dp0 = tdp0; drow[tgt].dm0 = tdm0;
+                    drow[tgt].dp1 = tdp1; drow[tgt].dm1 = tdm1;
+                    drow[tgt].back = cell->back;
+                    drow[tgt].xa = xa;
+                }
+            }
+            /* new live set, ascending (pass 2: traceback allocation in
+               (pair, target) order exactly like the batched update) */
+            qsort(newlv, nnew, sizeof(int32_t), rp4_cmp_i32);
+            if (het)
+                for (long li = 0; li < nnew; ++li) {
+                    long tgt = newlv[li];
+                    drow[tgt].back =
+                        (int32_t)rp4_node(drow[tgt].back, drow[tgt].xa);
+                }
+            memcpy(lv, newlv, nnew * sizeof(int32_t));
+            nlive2[pr] = (int32_t)nnew;
+        }
+        { RP4Cell *t = src; src = dst; dst = t; }
+        { int32_t *t = nlive; nlive = nlive2; nlive2 = t; }
+
+        /* advance both cursors */
+        fwd_a(a_old, ys_old, ones, Mold);
+        fwd_ad(a_ref, d, ys, ones, dones, Mref, (int32_t)k);
+    }
+
+    /* best final cell per pair: max s, first (smallest j) on ties */
+    for (long pr = 0; pr < n_pairs; ++pr) {
+        RP4Cell *srow = src + pr * Mc;
+        int32_t *lv = live + pr * Mc;
+        qsort(lv, nlive[pr], sizeof(int32_t), rp4_cmp_i32);
+        long best = -1;
+        float bs = 0.0f;
+        for (long li = 0; li < nlive[pr]; ++li) {
+            long j = lv[li];
+            if (best < 0 || srow[j].s > bs) { best = j; bs = srow[j].s; }
+        }
+        tb_out[pr] = best >= 0 ? srow[best].back : 0;
+    }
+    rc = rp4_n;
+done:
+    free(ys_old); free(x_old); free(ys); free(a_old); free(a_ref);
+    free(d); free(ones); free(dones); free(u);
+    free(bp0); free(bm0); free(bp1); free(bm1);
+    free(src); free(dst); free(stamp); free(live); free(newlv);
+    free(nlive); free(nlive2);
+    return rc;
+}
+
+EXPORT void ref_phase4_heap(int32_t *parent_out, uint8_t *value_out)
+{
+    memcpy(parent_out, rp4_parent, rp4_n * sizeof(int32_t));
+    memcpy(value_out, rp4_value, rp4_n);
+    free(rp4_parent); free(rp4_value);
+    rp4_parent = NULL; rp4_value = NULL;
+    rp4_n = rp4_cap = 0;
+}
+
+/* ------------------------------------------------------------------ */
+/* phaseSweep core (pbwtImpute.c:288-372)                              */
+/* ------------------------------------------------------------------ */
+
+/* byte offset of every pack3 column (one forward scan) */
+static long p3_col_offsets(const uint8_t *yz, long nz, long N, long M,
+                           int64_t *off)
+{
+    if (!p3dec_ready) p3dec_init();
+    long pos = 0;
+    for (long k = 0; k < N; ++k) {
+        off[k] = pos;
+        long m = 0;
+        while (m < M) {
+            if (pos >= nz) return -1;
+            long n = p3dec[yz[pos++] & 0x7f];
+            if (m + n > M) return -1;
+            m += n;
+        }
+    }
+    off[N] = pos;
+    return pos;
+}
+
+
+/* inverse of the stable partition (pbwtCursorReadBackwards,
+   pbwtCore.c:559-571): given the sorted column y at the earlier site,
+   recover the prefix array entering it */
+static void bwd_a(int32_t *a, const uint8_t *y, int32_t *tmp, long M)
+{
+    long c = 0;
+    for (long i = 0; i < M; ++i) c += (y[i] == 0);
+    long zr = 0, orr = 0;
+    for (long i = 0; i < M; ++i)
+        tmp[i] = y[i] == 0 ? a[zr++] : a[c + orr++];
+    memcpy(a, tmp, M * sizeof(int32_t));
+}
+
+typedef struct { int32_t *a, *d, *b; } SweepCur;
+
+static void sweep_cur_init(SweepCur *c, long M, const int32_t *a0)
+{
+    c->a = (int32_t *)malloc(M * sizeof(int32_t));
+    c->d = (int32_t *)calloc(M + 1, sizeof(int32_t));
+    c->b = (int32_t *)malloc(M * sizeof(int32_t));
+    if (a0) memcpy(c->a, a0, M * sizeof(int32_t));
+    else for (long i = 0; i < M; ++i) c->a[i] = (int32_t)i;
+    c->d[0] = 1; c->d[M] = 1;
+    for (long i = 0; i < M; ++i) c->b[c->a[i]] = (int32_t)i;
+}
+
+static void sweep_cur_free(SweepCur *c)
+{
+    free(c->a); free(c->d); free(c->b);
+}
+
+/* neighbour tables for phase_resolve: sort-order neighbours of each hap
+   and (for weighted cursors) the score1 log-length weights */
+static void sweep_tables(const int32_t *a, const int32_t *b,
+                         const int32_t *d, long M,
+                         const double *score_bit, long nsb, long kc,
+                         int32_t *al, int32_t *ar, double *wl, double *wr)
+{
+    for (long i = 0; i < M; ++i) {
+        long pos = b[i];
+        al[i] = pos > 0 ? a[pos - 1] : -1;
+        ar[i] = pos < M - 1 ? a[pos + 1] : -1;
+        if (wl) {
+            long li = kc + 1 - d[pos];
+            long ri = kc + 1 - d[pos + 1];
+            if (li < 0) li += nsb;      /* numpy negative-index wrap; the */
+            if (ri < 0) ri += nsb;      /* entry is unused when al/ar < 0 */
+            wl[i] = score_bit[li];
+            wr[i] = score_bit[ri];
+        }
+    }
+}
+
+/* One whole phaseSweep pass (pbwtImpute.c:288-372) as a streaming C
+   loop, matching algos/phase.py:phase_sweep exactly: read panel columns
+   (forwards, or backwards via column offsets), build neighbour tables
+   for the main + nSparse interleaved cursors (+ the reverse-pass pbwt on
+   the forward sweep), resolve hets with phase_resolve, write the phased
+   pbwt through an AD write cursor.  Returns packed length or -1. */
+EXPORT long phase_sweep_core(
+    const uint8_t *yzp, long nzp, long M, long N,
+    const int32_t *ap0, long is_start,
+    const uint8_t *yzr, long nzr, const int32_t *ar0,
+    const int32_t *rbinv0, long has_r,
+    const int32_t *aq0, long n_sparse, const double *score_bit,
+    double thresh, uint8_t *yz_out, long cap,
+    int32_t *aq_end, int32_t *bq_end)
+{
+    if (!p3dec_ready) p3dec_init();
+    long rc = -1, nout = 0;
+    long ncur = 1 + n_sparse + (has_r ? 1 : 0);
+    long n1cur = 1 + n_sparse;
+    long nsb = N + 2;
+
+    int64_t *offp = NULL, *offr = NULL;
+    uint8_t *yp = (uint8_t *)malloc(M);
+    uint8_t *x = (uint8_t *)malloc(M);
+    uint8_t *yq = (uint8_t *)malloc(M);
+    uint8_t *runbuf = (uint8_t *)malloc(M + 8);
+    int32_t *ap = (int32_t *)malloc(M * sizeof(int32_t));
+    int32_t *tmp = (int32_t *)malloc(M * sizeof(int32_t));
+    int32_t *ones = (int32_t *)malloc(M * sizeof(int32_t));
+    int32_t *dones = (int32_t *)malloc(M * sizeof(int32_t));
+    double *xp = (double *)malloc(M * sizeof(double));
+    int32_t *aL = (int32_t *)malloc(ncur * M * sizeof(int32_t));
+    int32_t *aR = (int32_t *)malloc(ncur * M * sizeof(int32_t));
+    double *wL = (double *)malloc(n1cur * M * sizeof(double));
+    double *wR = (double *)malloc(n1cur * M * sizeof(double));
+    int32_t *ar = NULL, *rbinv = NULL;
+    uint8_t *yr = NULL;
+    SweepCur uq;
+    SweepCur *uqq = (SweepCur *)malloc(n_sparse * sizeof(SweepCur));
+    sweep_cur_init(&uq, M, aq0);
+    for (long j = 0; j < n_sparse; ++j) sweep_cur_init(&uqq[j], M, NULL);
+    memcpy(ap, ap0, M * sizeof(int32_t));
+    long pos_p = 0;
+
+    if (!is_start) {
+        offp = (int64_t *)malloc((N + 1) * sizeof(int64_t));
+        if (p3_col_offsets(yzp, nzp, N, M, offp) < 0) goto done;
+    }
+    if (has_r) {
+        offr = (int64_t *)malloc((N + 1) * sizeof(int64_t));
+        if (p3_col_offsets(yzr, nzr, N, M, offr) < 0) goto done;
+        ar = (int32_t *)malloc(M * sizeof(int32_t));
+        rbinv = (int32_t *)malloc(M * sizeof(int32_t));
+        yr = (uint8_t *)malloc(M);
+        memcpy(ar, ar0, M * sizeof(int32_t));
+        memcpy(rbinv, rbinv0, M * sizeof(int32_t));
+    }
+
+    for (long k = 0; k < N; ++k) {
+        /* panel column -> natural order x */
+        if (is_start) {
+            pos_p = p3_col_at(yzp, nzp, pos_p, M, yp);
+            if (pos_p < 0) goto done;
+            for (long i = 0; i < M; ++i) x[ap[i]] = yp[i];
+            fwd_a(ap, yp, ones, M);
+        } else {
+            if (p3_col_at(yzp, nzp, offp[N - 1 - k], M, yp) < 0) goto done;
+            bwd_a(ap, yp, tmp, M);
+            for (long i = 0; i < M; ++i) x[ap[i]] = yp[i];
+        }
+        long n2 = 0;
+        for (long i = 0; i < M; i += 2) {
+            if (x[i] != x[i + 1]) {
+                xp[i] = 0.0; xp[i + 1] = 0.0; ++n2;
+            } else {
+                xp[i] = x[i] ? 1.0 : -1.0;
+                xp[i + 1] = x[i + 1] ? 1.0 : -1.0;
+            }
+        }
+        if (n2) {
+            sweep_tables(uq.a, uq.b, uq.d, M, score_bit, nsb, k,
+                         aL, aR, wL, wR);
+            for (long j = 0; j < n_sparse; ++j)
+                sweep_tables(uqq[j].a, uqq[j].b, uqq[j].d, M, score_bit,
+                             nsb, k / n_sparse, aL + (1 + j) * M,
+                             aR + (1 + j) * M, wL + (1 + j) * M,
+                             wR + (1 + j) * M);
+            if (has_r)
+                sweep_tables(ar, rbinv, NULL, M, NULL, 0, 0,
+                             aL + (1 + n_sparse) * M,
+                             aR + (1 + n_sparse) * M, NULL, NULL);
+            phase_resolve(xp, M, ncur, n1cur, aL, aR, wL, wR, thresh);
+        }
+        for (long i = 0; i < M; ++i) x[i] = xp[i] > 0.0;
+        /* uq.write_ad(x, k) */
+        for (long i = 0; i < M; ++i) yq[i] = x[uq.a[i]];
+        long nb = p3_encode(yq, M, runbuf);
+        if (nout + nb > cap) goto done;
+        memcpy(yz_out + nout, runbuf, nb);
+        nout += nb;
+        fwd_ad(uq.a, uq.d, yq, ones, dones, M, (int32_t)k);
+        for (long i = 0; i < M; ++i) uq.b[uq.a[i]] = (int32_t)i;
+        /* sparse cursor k % n_sparse advances with k2 = k / n_sparse */
+        {
+            SweepCur *c = &uqq[k % n_sparse];
+            for (long i = 0; i < M; ++i) yq[i] = x[c->a[i]];
+            fwd_ad(c->a, c->d, yq, ones, dones, M, (int32_t)(k / n_sparse));
+            for (long i = 0; i < M; ++i) c->b[c->a[i]] = (int32_t)i;
+        }
+        if (has_r) {
+            if (p3_col_at(yzr, nzr, offr[N - 1 - k], M, yr) < 0) goto done;
+            bwd_a(ar, yr, tmp, M);
+            for (long i = 0; i < M; ++i) rbinv[ar[i]] = (int32_t)i;
+        }
+    }
+    memcpy(aq_end, uq.a, M * sizeof(int32_t));
+    memcpy(bq_end, uq.b, M * sizeof(int32_t));
+    rc = nout;
+done:
+    free(offp); free(offr); free(yp); free(x); free(yq); free(runbuf);
+    free(ap); free(tmp); free(ones); free(dones); free(xp);
+    free(aL); free(aR); free(wL); free(wR);
+    free(ar); free(rbinv); free(yr);
+    sweep_cur_free(&uq);
+    for (long j = 0; j < n_sparse; ++j) sweep_cur_free(&uqq[j]);
+    free(uqq);
+    return rc;
+}
+
+/* ------------------------------------------------------------------ */
+/* corruption / simulation (pbwtImpute.c:1492-1619)                     */
+/* ------------------------------------------------------------------ */
+
+/* glibc rand() TYPE_3 stream (unseeded == srand(1)); one process-global
+   state shared by the corruption cores and python's crand module so the
+   draw sequence matches the reference binary exactly across a pipeline */
+static uint32_t cr_t[31];
+static int cr_f = 3, cr_r = 0, cr_ready = 0;
+
+EXPORT void crand_srand(uint32_t seed)
+{
+    if (seed == 0) seed = 1;
+    cr_t[0] = seed;
+    int32_t word = (int32_t)seed;
+    for (int i = 1; i < 31; ++i) {
+        int32_t hi = word / 127773, lo = word % 127773;
+        word = 16807 * lo - 2836 * hi;
+        if (word < 0) word += 2147483647;
+        cr_t[i] = (uint32_t)word;
+    }
+    cr_f = 3; cr_r = 0; cr_ready = 1;
+    for (int i = 0; i < 310; ++i) {
+        uint32_t v = cr_t[cr_f] += cr_t[cr_r];
+        (void)v;
+        if (++cr_f == 31) cr_f = 0;
+        if (++cr_r == 31) cr_r = 0;
+    }
+}
+
+EXPORT long crand_next(void)
+{
+    if (!cr_ready) crand_srand(1);
+    uint32_t v = cr_t[cr_f] += cr_t[cr_r];
+    if (++cr_f == 31) cr_f = 0;
+    if (++cr_r == 31) cr_r = 0;
+    return (long)(v >> 1);
+}
+
+/* pbwtCorruptSites (pbwtImpute.c:1492-1537): corruption applied at
+   positions in the NEW cursor's sort order. Returns n_change or -1. */
+EXPORT long corrupt_sites_core(const uint8_t *yzold, long nzold,
+                               long M, long N, const int32_t *aold0,
+                               long r_site, long r_change, double r_fac,
+                               uint8_t *yz, long cap,
+                               int32_t *anew_end, int64_t *lens)
+{
+    if (!p3dec_ready) p3dec_init();
+    uint8_t *ys = (uint8_t *)malloc(M), *x = (uint8_t *)malloc(M);
+    uint8_t *y = (uint8_t *)malloc(M), *runbuf = (uint8_t *)malloc(M + 8);
+    int32_t *ao = (int32_t *)malloc(M * sizeof(int32_t));
+    int32_t *an = (int32_t *)malloc(M * sizeof(int32_t));
+    int32_t *ones = (int32_t *)malloc(M * sizeof(int32_t));
+    memcpy(ao, aold0, M * sizeof(int32_t));
+    for (long i = 0; i < M; ++i) an[i] = (int32_t)i;
+    long pos = 0, nout = 0, n_change = 0, rc = -1;
+    for (long k = 0; k < N; ++k) {
+        pos = p3_col_at(yzold, nzold, pos, M, ys);
+        if (pos < 0) goto done;
+        long c = 0;
+        for (long i = 0; i < M; ++i) c += (ys[i] == 0);
+        for (long i = 0; i < M; ++i) x[ao[i]] = ys[i];
+        for (long i = 0; i < M; ++i) y[i] = x[an[i]];
+        if (crand_next() < r_site) {
+            double thresh = c * r_fac;
+            for (long i = 0; i < M; ++i)
+                if (crand_next() < r_change) {
+                    uint8_t old = y[i];
+                    y[i] = crand_next() < thresh ? 0 : 1;
+                    if (y[i] != old) ++n_change;
+                }
+        }
+        long nb = p3_encode(y, M, runbuf);
+        if (nout + nb > cap) goto done;
+        memcpy(yz + nout, runbuf, nb);
+        nout += nb;
+        fwd_a(an, y, ones, M);
+        fwd_a(ao, ys, ones, M);
+    }
+    memcpy(anew_end, an, M * sizeof(int32_t));
+    lens[0] = nout;
+    rc = n_change;
+done:
+    free(ys); free(x); free(y); free(runbuf);
+    free(ao); free(an); free(ones);
+    return rc;
+}
+
+/* pbwtCorruptSamples (pbwtImpute.c:1539-1584): isCorrupt[] indexed by
+   sort-order position, as the reference does. */
+EXPORT long corrupt_samples_core(const uint8_t *yzold, long nzold,
+                                 long M, long N, const int32_t *aold0,
+                                 long r_sample, long r_change, double r_fac,
+                                 uint8_t *yz, long cap,
+                                 int32_t *anew_end, int64_t *lens)
+{
+    if (!p3dec_ready) p3dec_init();
+    uint8_t *ys = (uint8_t *)malloc(M), *x = (uint8_t *)malloc(M);
+    uint8_t *y = (uint8_t *)malloc(M), *runbuf = (uint8_t *)malloc(M + 8);
+    uint8_t *isc = (uint8_t *)malloc(M);
+    int32_t *ao = (int32_t *)malloc(M * sizeof(int32_t));
+    int32_t *an = (int32_t *)malloc(M * sizeof(int32_t));
+    int32_t *ones = (int32_t *)malloc(M * sizeof(int32_t));
+    memcpy(ao, aold0, M * sizeof(int32_t));
+    for (long i = 0; i < M; ++i) an[i] = (int32_t)i;
+    for (long i = 0; i < M; ++i) isc[i] = crand_next() < r_sample;
+    long pos = 0, nout = 0, n_change = 0, rc = -1;
+    for (long k = 0; k < N; ++k) {
+        pos = p3_col_at(yzold, nzold, pos, M, ys);
+        if (pos < 0) goto done;
+        long c = 0;
+        for (long i = 0; i < M; ++i) c += (ys[i] == 0);
+        for (long i = 0; i < M; ++i) x[ao[i]] = ys[i];
+        for (long i = 0; i < M; ++i) y[i] = x[an[i]];
+        double thresh = c * r_fac;
+        for (long i = 0; i < M; ++i)
+            if (isc[i] && crand_next() < r_change) {
+                uint8_t v = crand_next() < thresh ? 0 : 1;
+                if (v != y[i]) ++n_change;
+                y[i] = v;
+            }
+        long nb = p3_encode(y, M, runbuf);
+        if (nout + nb > cap) goto done;
+        memcpy(yz + nout, runbuf, nb);
+        nout += nb;
+        fwd_a(an, y, ones, M);
+        fwd_a(ao, ys, ones, M);
+    }
+    memcpy(anew_end, an, M * sizeof(int32_t));
+    lens[0] = nout;
+    rc = n_change;
+done:
+    free(ys); free(x); free(y); free(runbuf); free(isc);
+    free(ao); free(an); free(ones);
+    return rc;
+}
+
+/* pbwtCopySamples (pbwtImpute.c:1586-1619): Li-Stephens mosaic
+   simulator; copy[] switched by sort-order position but read through
+   copy[aNew[j]], reproducing the reference's own inconsistency. */
+EXPORT long copy_samples_core(const uint8_t *yzold, long nzold,
+                              long Mold, long N, const int32_t *aold0,
+                              long Mnew, long r_switch,
+                              uint8_t *yz, long cap,
+                              int32_t *anew_end, int64_t *lens)
+{
+    if (!p3dec_ready) p3dec_init();
+    uint8_t *ys = (uint8_t *)malloc(Mold), *x = (uint8_t *)malloc(Mold);
+    uint8_t *y = (uint8_t *)malloc(Mnew);
+    uint8_t *runbuf = (uint8_t *)malloc(Mnew + 8);
+    int32_t *ao = (int32_t *)malloc(Mold * sizeof(int32_t));
+    int32_t *an = (int32_t *)malloc(Mnew * sizeof(int32_t));
+    int32_t *ones = (int32_t *)malloc((Mold > Mnew ? Mold : Mnew)
+                                      * sizeof(int32_t));
+    int64_t *copy = (int64_t *)malloc(Mnew * sizeof(int64_t));
+    memcpy(ao, aold0, Mold * sizeof(int32_t));
+    for (long i = 0; i < Mnew; ++i) an[i] = (int32_t)i;
+    for (long i = 0; i < Mnew; ++i) copy[i] = crand_next() % Mold;
+    long pos = 0, nout = 0, rc = -1;
+    for (long k = 0; k < N; ++k) {
+        pos = p3_col_at(yzold, nzold, pos, Mold, ys);
+        if (pos < 0) goto done;
+        for (long i = 0; i < Mold; ++i) x[ao[i]] = ys[i];
+        for (long j = 0; j < Mnew; ++j)
+            if (crand_next() < r_switch) copy[j] = crand_next() % Mold;
+        for (long j = 0; j < Mnew; ++j) y[j] = x[copy[an[j]]];
+        long nb = p3_encode(y, Mnew, runbuf);
+        if (nout + nb > cap) goto done;
+        memcpy(yz + nout, runbuf, nb);
+        nout += nb;
+        fwd_a(an, y, ones, Mnew);
+        fwd_a(ao, ys, ones, Mold);
+    }
+    memcpy(anew_end, an, Mnew * sizeof(int32_t));
+    lens[0] = nout;
+    rc = 0;
+done:
+    free(ys); free(x); free(y); free(runbuf);
+    free(ao); free(an); free(ones); free(copy);
+    return rc;
+}
+
+/* ------------------------------------------------------------------ */
+/* merge, genotype and phase comparison                                */
+/* ------------------------------------------------------------------ */
+
+
+/* One streaming pass over nf pack3 inputs.  The site-level key walk
+   (duplicate collapse, intersection — pbwt_reader_next,
+   pbwtMerge.c:78-127) runs in Python over the sites lists; this core
+   receives, per file, the action stream over its CONSUMED columns in
+   order: 1 = the column belongs to an emitted shared site, 0 = discard
+   (cursor advance only).  Every file has exactly n_emit action-1
+   entries, in the same order as the output sites.  a_all holds each
+   file's starting prefix array (aFstart or identity), consumed/updated
+   in place; a_out is the output prefix array (identity-seeded by the
+   caller), left at aFend.  Emits pack3 bytes of the merged PBWT
+   (cap-bounded; returns needed bytes, or -1 on malloc/stream failure).
+
+   Unlike the reference's cursor pipeline (unpack + forwardsA + scatter,
+   then gather + pack3 + forwardsA — pbwtMerge.c:176-201), each side here
+   is ONE fused pass: decode/scatter/partition per reader and
+   gather/encode/partition on the output. */
+EXPORT long merge_core(long nf,
+                       const uint8_t **yzs, const int64_t *nzs,
+                       const int64_t *Ms, const int64_t *a_off,
+                       const uint8_t *act_all, const int64_t *act_off,
+                       int32_t *a_all, long n_emit,
+                       int32_t *a_out, uint8_t *yz_out, long cap)
+{
+    long Mtot = 0;
+    for (long f = 0; f < nf; ++f) Mtot += Ms[f];
+    long *cpos = (long *)calloc(nf, sizeof(long));
+    long *bpos = (long *)calloc(nf, sizeof(long));
+    uint8_t *ynat = (uint8_t *)malloc(Mtot);
+    int32_t *ones = (int32_t *)malloc(Mtot * sizeof(int32_t));
+    uint8_t *runbuf = (uint8_t *)malloc(Mtot + 8);
+    long nout = 0, rc = -1;
+    if (!cpos || !bpos || !ynat || !ones || !runbuf) goto done;
+    for (long e = 0; e < n_emit; ++e) {
+        long off = 0;
+        for (long f = 0; f < nf; ++f) {
+            int32_t *af = a_all + a_off[f];
+            const uint8_t *acts = act_all + act_off[f];
+            while (!acts[cpos[f]]) {            /* discarded keys: advance */
+                if (p3_scatter_fwd(yzs[f], nzs[f], &bpos[f], af, ones,
+                                   Ms[f], NULL) < 0) goto done;
+                cpos[f]++;
+            }
+            if (p3_scatter_fwd(yzs[f], nzs[f], &bpos[f], af, ones,
+                               Ms[f], ynat + off) < 0) goto done;
+            cpos[f]++;
+            off += Ms[f];
+        }
+        long nb = gather_encode_fwd(a_out, Mtot, ynat, ones, runbuf);
+        if (nout + nb <= cap) memcpy(yz_out + nout, runbuf, nb);
+        nout += nb;
+    }
+    rc = nout;
+done:
+    free(cpos); free(bpos); free(ynat); free(ones); free(runbuf);
+    return rc;
+}
+
+/* ------------------------------------------------------------------ */
+/* genotypeCompare counting core (pbwtImpute.c:1375-1488)              */
+/* ------------------------------------------------------------------ */
+
+/* One streaming pass over both packed panels: per site, decode + natural
+   scatter both columns (fused run-level cursor step), bin the site by
+   frequency (refFreq override, else allele-1 fraction), and count the
+   9-cell genotype-pair tables globally per bin (n_out) and per diploid
+   sample (ns_out).  fsum/nsum/isum/ni mirror the reference's per-bin
+   frequency / imputeInfo accumulators.  Returns 0, -1 on error. */
+EXPORT long gtcompare_core(const uint8_t *yzp, long nzp,
+                           const uint8_t *yzq, long nzq,
+                           long M, long N,
+                           const int32_t *ap0, const int32_t *aq0,
+                           const double *rf, const double *ii,
+                           const double *fbound, long nbound,
+                           int64_t *n_out, int64_t *ns_out,
+                           double *fsum, int64_t *nsum,
+                           double *isum, int64_t *ni)
+{
+    int32_t *ap = (int32_t *)malloc(M * sizeof(int32_t));
+    int32_t *aq = (int32_t *)malloc(M * sizeof(int32_t));
+    int32_t *ones = (int32_t *)malloc(M * sizeof(int32_t));
+    uint8_t *xp = (uint8_t *)malloc(M);
+    uint8_t *xq = (uint8_t *)malloc(M);
+    long posp = 0, posq = 0, rc = -1;
+    if (!ap || !aq || !ones || !xp || !xq) goto done;
+    memcpy(ap, ap0, M * sizeof(int32_t));
+    memcpy(aq, aq0, M * sizeof(int32_t));
+    for (long k = 0; k < N; ++k) {
+        long zp = p3_scatter_fwd(yzp, nzp, &posp, ap, ones, M, xp);
+        if (zp < 0) goto done;
+        if (p3_scatter_fwd(yzq, nzq, &posq, aq, ones, M, xq) < 0)
+            goto done;
+        double f = rf[k] != 0.0 ? rf[k] : (double)(M - zp) / (double)M;
+        long ff = 0;
+        while (ff < nbound - 1 && f * 100.0 > fbound[ff]) ++ff;
+        fsum[ff] += f * 100.0;
+        nsum[ff]++;
+        if (ii[k] < 1.0) { isum[ff] += ii[k]; ni[ff]++; }
+        int64_t *nrow = n_out + ff * 9;
+        for (long j = 0; j + 1 < M; j += 2) {
+            long i9 = 3 * (xp[j] + xp[j + 1]) + xq[j] + xq[j + 1];
+            nrow[i9]++;
+            ns_out[(j >> 1) * 9 + i9]++;
+        }
+    }
+    rc = 0;
+done:
+    free(ap); free(aq); free(ones); free(xp); free(xq);
+    return rc;
+}
+
+/* phaseCompare (pbwtImpute.c:165-243) as one streaming pass over both
+   packed panels: per-pair flip-state machine over het sites.
+   out4 = {nSwitch, nHet, nSwitch1, nSwitch5}.  Returns 0 / -1. */
+EXPORT long phase_compare_core(const uint8_t *yzp, long nzp,
+                               const uint8_t *yzq, long nzq,
+                               long M, long N,
+                               const int32_t *ap0, const int32_t *aq0,
+                               int64_t *out4, int64_t *n_switch_sample,
+                               int64_t *n_switch_site)
+{
+    long P = M / 2, rc = -1, posp = 0, posq = 0;
+    int32_t *ap = (int32_t *)malloc(M * sizeof(int32_t));
+    int32_t *aq = (int32_t *)malloc(M * sizeof(int32_t));
+    int32_t *ones = (int32_t *)malloc(M * sizeof(int32_t));
+    uint8_t *xp = (uint8_t *)malloc(M);
+    uint8_t *xq = (uint8_t *)malloc(M);
+    uint8_t *isfirst = (uint8_t *)malloc(P);
+    uint8_t *flip = (uint8_t *)calloc(P, 1);
+    int64_t *lastflip = (int64_t *)calloc(P, sizeof(int64_t));
+    int64_t *khet = (int64_t *)calloc(P, sizeof(int64_t));
+    if (!ap || !aq || !ones || !xp || !xq || !isfirst || !flip
+        || !lastflip || !khet) goto done;
+    memcpy(ap, ap0, M * sizeof(int32_t));
+    memcpy(aq, aq0, M * sizeof(int32_t));
+    memset(isfirst, 1, P);
+    long nswitch = 0, nhet = 0, nsw1 = 0, nsw5 = 0;
+    for (long k = 0; k < N; ++k) {
+        if (p3_scatter_fwd(yzp, nzp, &posp, ap, ones, M, xp) < 0)
+            goto done;
+        if (p3_scatter_fwd(yzq, nzq, &posq, aq, ones, M, xq) < 0)
+            goto done;
+        long nsw_k = 0;
+        for (long j = 0; j < P; ++j) {
+            int a0 = xp[2 * j], a1 = xp[2 * j + 1];
+            if (a0 + a1 != 1) continue;
+            ++nhet; ++khet[j];
+            if (isfirst[j]) {
+                isfirst[j] = 0;
+                flip[j] = (uint8_t)(a0 == xq[2 * j + 1]);
+                continue;
+            }
+            int sel = flip[j] ? xq[2 * j + 1] : xq[2 * j];
+            if (a0 != sel) {
+                ++nswitch; ++n_switch_sample[j]; ++nsw_k;
+                long gap = khet[j] - lastflip[j];
+                if (gap > 1) ++nsw1;
+                if (gap > 5) ++nsw5;
+                flip[j] ^= 1;
+                lastflip[j] = khet[j];
+            }
+        }
+        n_switch_site[k] = nsw_k;
+    }
+    out4[0] = nswitch; out4[1] = nhet; out4[2] = nsw1; out4[3] = nsw5;
+    rc = 0;
+done:
+    free(ap); free(aq); free(ones); free(xp); free(xq);
+    free(isfirst); free(flip); free(lastflip); free(khet);
+    return rc;
 }

@@ -171,12 +171,14 @@ def test_cli_host_route_imports_no_torch(files):
 
 
 def test_cli_refuses_other_commands(files):
+    """A command that neither CLI has stops with the reference's words."""
     p, _ = files
-    res = _run([sys.executable, "-c", RUN_PORT, "-read", p, "-4hapsStats"],
+    res = _run([sys.executable, "-c", RUN_PORT, "-read", p, "-5hapsStats"],
                {})
     assert res.returncode != 0
-    last = res.stderr.decode().strip().splitlines()[-1]
-    assert "-4hapsStats" in last and "python -m pbwt_tpu" in last
+    last = res.stderr.decode().strip().splitlines()[-2:]
+    assert last == ["unrecognised command -5hapsStats",
+                    "Type pbwt without arguments for help"]
 
 
 @pytest.fixture(scope="module")

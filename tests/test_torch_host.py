@@ -187,6 +187,8 @@ def _native_case(name, native):
         return native.sweep_match_packed(yz, 300, yzq, 20, 50, a0, aq0).copy()
     if name in ("segs_sort", "impute_vote_emit", "impute_emit"):
         return _impute_case(name, native, X, yz, a0)
+    if name in PHASING_ENTRIES:
+        return _phasing_case(name, native, X, yz, a0)
     if name in ("max_within", "long_within"):
         return (native.max_within(Y, a0) if name == "max_within"
                 else native.long_within(Y, 6, a0)).copy()
@@ -238,8 +240,88 @@ def _impute_case(name, native, X, yz, a0):
                               rng.permutation(T).astype(np.int32))
 
 
-@pytest.mark.parametrize("name", ["segs_sort", "impute_vote_emit",
-                                  "impute_emit",
+PHASING_ENTRIES = ("crand_next", "corrupt_sites_core", "corrupt_samples_core",
+                   "copy_samples_core", "gtcompare_core",
+                   "phase_compare_core", "merge_core", "phase_resolve",
+                   "phase_stop_max", "phase_sweep_core", "ref_phase4_core")
+
+
+def _phasing_case(name, native, X, yz, a0):
+    """The entries of the corruption, comparison, merge and phasing
+    commands on the 300 x 50 panel: the rand() stream seeded first, a
+    second panel of the same shape with 3% of its alleles changed, three
+    batches to merge (one with columns to discard), the neighbour tables
+    and stop maxima of one site, and both phasing sweeps."""
+    lib = native.get_lib()
+    lib.crand_srand(3)
+    rng = np.random.RandomState(23)
+    RAND_MAX = 2147483647
+    if name == "crand_next":
+        return [lib.crand_next() for _ in range(100)]
+    if name == "corrupt_sites_core":
+        return native.corrupt_sites_core(yz, 300, 50, a0, RAND_MAX // 3,
+                                         RAND_MAX // 10, RAND_MAX / 300)
+    if name == "corrupt_samples_core":
+        return native.corrupt_samples_core(yz, 300, 50, a0, RAND_MAX // 4,
+                                           RAND_MAX // 8, RAND_MAX / 300)
+    if name == "copy_samples_core":
+        return native.copy_samples_core(yz, 300, 50, a0, 120, RAND_MAX // 9)
+    Xq = X ^ (rng.random_sample(X.shape) < 0.03).astype(np.uint8)
+    yzq = ref_native.encode_cols(_sorted_columns(Xq))[0]
+    if name == "gtcompare_core":
+        rf = np.where(np.arange(50) % 3 == 0, 0.0, rng.random_sample(50))
+        ii = np.where(np.arange(50) % 4 == 0, 1.0, rng.random_sample(50))
+        fbound = np.array([0.1, 0.5, 1, 5, 10, 20, 50, 90, 100.01])
+        return native.gtcompare_core(yz, yzq, 300, 50, a0, a0, rf, ii,
+                                     fbound)
+    if name == "phase_compare_core":
+        return native.phase_compare_core(yz, yzq, 300, 50, a0, a0)
+    if name == "merge_core":
+        X2 = _panel(25, 64, 56)
+        keep = np.ones(56, np.uint8)
+        keep[[0, 9, 10, 31, 40, 55]] = 0
+        parts = [(X[:100], np.ones(50, np.uint8)), (X2, keep),
+                 (X[100:178], np.ones(50, np.uint8))]
+        yzs = [ref_native.encode_cols(_sorted_columns(x))[0]
+               for x, _ in parts]
+        return native.merge_core(yzs, [len(x) for x, _ in parts],
+                                 [np.arange(len(x), dtype=np.int32)
+                                  for x, _ in parts],
+                                 [k for _, k in parts], 50)
+    a_end = ref_native.build_pbwt(np.ascontiguousarray(X.T), a0)[1]
+    if name in ("phase_resolve", "phase_stop_max"):
+        d = rng.randint(0, 40, size=301).astype(np.int32)
+        y = (rng.random_sample(300) < 0.4).astype(np.uint8)
+        if name == "phase_stop_max":
+            bp, bm = np.empty(301, np.int64), np.empty(301, np.int64)
+            lib.phase_stop_max(d, y, 1, 300, bp, bm)
+            return bp, bm
+        xp = np.where(X[:, 7] == 1, 1.0, -1.0)
+        het = np.flatnonzero(X[0::2, 7] != X[1::2, 7]) * 2
+        xp[het] = xp[het + 1] = 0.0
+        aL = rng.randint(-1, 300, size=3 * 300).astype(np.int32)
+        aR = rng.randint(-1, 300, size=3 * 300).astype(np.int32)
+        wL = rng.random_sample(2 * 300) * 3
+        wR = rng.random_sample(2 * 300) * 3
+        lib.phase_resolve(xp, 300, 3, 2, aL, aR, wL, wR, 6.5)
+        return xp
+    score_bit = np.log(np.arange(1, 53, dtype=np.float64))
+    if name == "phase_sweep_core":
+        fwd = native.phase_sweep_core(yz, 300, 50, a0, True, None, None,
+                                      None, None, 2, score_bit, 6.5)
+        fwd = (fwd[0], fwd[1].copy(), fwd[2].copy())
+        bwd = native.phase_sweep_core(yz, 300, 50, a_end, False, fwd[0],
+                                      fwd[1], fwd[2], fwd[1], 2, score_bit,
+                                      8.5)
+        return fwd + bwd
+    Xold = _panel(26, 40, 50)
+    yzold = ref_native.encode_cols(_sorted_columns(Xold))[0]
+    return native.ref_phase4_core(yzold, 40, yz, 300, 50,
+                                  np.arange(40, dtype=np.int32), a0)
+
+
+@pytest.mark.parametrize("name", [*PHASING_ENTRIES, "segs_sort",
+                                  "impute_vote_emit", "impute_emit",
                                   "encode_cols", "natural_cols",
                                   "transpose_u8", "build_pbwt",
                                   "write_match_rows", "decode_cols",
