@@ -482,3 +482,13 @@ class DeviceMatcher:
                                          # from the first segment
         self._caps[Q] = cap
         return rows[rows[:, 1] < self.M].cpu().numpy()
+
+
+def match_queries_device(Xp: np.ndarray, Xq: np.ndarray, device=None
+                         ) -> np.ndarray:
+    """Set-maximal matches of the (Q, N) queries Xq against the (M, N) panel
+    Xp with nothing standing: upload, trajectory, rank plane, scan and
+    expansion in one call, through :class:`DeviceMatcher`. Counterpart of
+    ``pbwt_tpu.ops.match_jax.match_queries_device``: (n, 4) int32 rows
+    (q, panel haplotype, start, end) in its order."""
+    return DeviceMatcher(Xp, device=device).match(Xq)
