@@ -2,12 +2,14 @@
 leave-one-out copy model (pbwtLikelihood.c).
 
 Counterpart of ``pbwt_tpu/algos/likelihood.py``. The copy model's evaluation
-goes to kernel K4 (:mod:`pbwt_tpu_torch.ops.likelihood`) when
-``device_requested(exact=False)``, that is only when ``PBWT_TORCH_DEVICE``
-is set, and to the host's f64 numpy otherwise, so by default stdout is the
-host's. A fit decodes the pbwt once and, on the device route, uploads the
-site columns once; every evaluation of its line search then runs against
-them. ``-fitAlphaBeta`` has no device route.
+goes to kernel K4 (:mod:`pbwt_tpu_torch.ops.likelihood`) whenever
+``device_requested()``, as the other device routes do, and to the host's
+f64 numpy otherwise. Both routes are exact: K4 computes the host's f64
+model with the host's order of every sum, its row sums equal the host's
+bit for bit, and only the logs may differ by their ulps. A fit decodes the
+pbwt once and, on the device route, uploads the site columns once; every
+evaluation of its line search then runs against them. ``-fitAlphaBeta`` has
+no device route.
 """
 
 from __future__ import annotations
@@ -265,10 +267,10 @@ def _copy_ll_host(X: np.ndarray, theta: float, rho: float) -> float:
 
 def copy_ll_evaluator(p: PBWT):
     """(theta, rho) -> drop-one log likelihood of p, on the route that
-    ``device_requested(exact=False)`` picks. The pbwt is decoded here, once,
-    and on the device route the site columns are uploaded here, once."""
+    ``device_requested()`` picks. The pbwt is decoded here, once, and on the
+    device route the site columns are uploaded here, once."""
     X = p.haplotypes()
-    if device_requested(exact=False):
+    if device_requested():
         from ..ops import likelihood as ls
         cols = ls.upload_columns(X)
         return lambda theta, rho: ls.copy_ll_columns(cols, theta, rho)

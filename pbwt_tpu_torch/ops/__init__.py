@@ -2,9 +2,7 @@
 
 ``PBWT_TORCH_DEVICE`` routes the algorithms:
 
-* unset: the exact device routes (construction, matching) are on iff a CUDA
-  card is there; the f32-close ones (the copy-model likelihood) stay on the
-  host;
+* unset: the device routes are on iff a CUDA card is there;
 * ``0`` or empty: the host engine;
 * ``1``: the device routes, on the first CUDA card; an error without one;
 * ``cpu``: the device routes on CPU tensors, where every wrapper runs its
@@ -42,16 +40,11 @@ def _setting() -> str | None:
     raise ValueError(f"PBWT_TORCH_DEVICE={v!r}: expected 0, 1 or cpu")
 
 
-def device_requested(exact: bool = True) -> bool:
+def device_requested() -> bool:
     """Should algorithms route through the device engine?
-
-    Paths whose device output is only f32-close to the host's (the
-    copy-model likelihood) pass ``exact=False``: they stay on the host
-    unless ``PBWT_TORCH_DEVICE`` is set, so by default the CLI prints what
-    the host prints. ``PBWT_TORCH_DEVICE=1`` without a CUDA card raises.
-    """
+    ``PBWT_TORCH_DEVICE=1`` without a CUDA card raises."""
     v = _setting()
-    if v in ("0", "cpu") or (v is None and not exact):
+    if v in ("0", "cpu"):
         return v == "cpu"
     import torch
     if v == "1" and not torch.cuda.is_available():

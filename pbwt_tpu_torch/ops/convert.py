@@ -38,12 +38,12 @@ def digit_planes_to_int(planes: np.ndarray) -> np.ndarray:
     return v.reshape(v.shape[:-2] + (-1,))
 
 
-def ls_state_from_jax(left_p: np.ndarray, invrs_p: np.ndarray, M: int):
-    """The copy-model carry of ``pbwt_tpu.ops.likelihood_jax`` (a padded
-    (Mp, Mp) un-normalised left and an (Mp, 1) invrs) -> the port's (M, M)
-    left and (M,) invrs, f32."""
-    left = np.ascontiguousarray(np.asarray(left_p)[:M, :M], np.float32)
-    return left, np.ascontiguousarray(np.asarray(invrs_p)[:M, 0], np.float32)
+def ls_state_from_jax(left_p: np.ndarray, rowsum_p: np.ndarray, M: int):
+    """A site of ``pbwt_tpu.ops.likelihood_jax``'s step (a padded (Mp, Mp)
+    un-normalised left and its (Mp, 1) row sums, f32) -> the port's state
+    after that site: the (M, M) left and its (M,) row sums, f64."""
+    left = np.ascontiguousarray(np.asarray(left_p)[:M, :M], np.float64)
+    return left, np.ascontiguousarray(np.asarray(rowsum_p)[:M, 0], np.float64)
 
 
 def trajectory_from_jax(a_end, A_pre, D8, U8, C):

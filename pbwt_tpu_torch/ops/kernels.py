@@ -35,7 +35,7 @@ LIB_PATH = os.path.join(BUILD_DIR, "libpbwt_torch_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "k1_group_partition": [_I, _P, _L, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
@@ -47,8 +47,9 @@ _SIGNATURES = {
     "k3_rank_plane": [_I, _P, _P, _I, _I, _P, _P],
     "k3_match_scan": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P, _I, _P, _P],
-    "k4_ls_step": [_I, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P],
-    "k4_ls_eval": [_I, _P, _L, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P],
+    "k4_ls_step": [_I, _P, _P, _P, _P, _I, _P, _I, _D, _D, _D, _D, _P],
+    "k4_ls_eval": [_I, _P, _L, _I, _I, _I, _I, _P, _I, _D, _D, _D, _D, _D, _P,
+                   _P, _P],
     "k5_impute_vote": [_I, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P,
                        _P, _P, _P, _P, _P],
     "k6_paint_accumulate": [_I, _I, _I, _I, _P, _P, _L, _P, _P, _P, _P, _P,

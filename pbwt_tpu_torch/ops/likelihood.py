@@ -1,10 +1,24 @@
 """Li-Stephens leave-one-out copy-model likelihood: kernel K4 and its twins.
 
-Counterpart of ``pbwt_tpu/ops/likelihood_jax.py``. An evaluation walks the
-N sites of the panel over the (M, M) f32 copy matrix ``left``, carried
-un-normalised, with the (M,) f32 reciprocal row sums ``invrs`` of the
-previous site and the (M,) per-row log-sum accumulator ``ll``. Two kernels
-(``csrc/ls_step.cu``) compute it, from the same (N, M) uint8 site columns:
+Counterpart of ``pbwt_tpu/ops/likelihood_jax.py``, computing what the host
+computes in f64 (``algos/likelihood.py:_copy_ll_host``, the JAX package's
+``copy_log_likelihood_drop_one``) exactly. An evaluation walks the N sites of
+the panel over the state (``left``, ``rs``, ``ll``): the (M, M) f64 copy
+matrix of the last site, un-normalised; its (M,) f64 row sums (ones before
+the first site); and the (M,) f64 per-row sums of their logs. A site:
+
+    left = ((left / rs) * (1-rho) + rho/(M-1)) * (x_i == x_j ? 1-theta : theta)
+    left[i][i] = 0;  rs = row sums of left;  ll += log(rs)
+
+every operation rounded on its own, as numpy rounds it. The host divides at
+the end of a site; the division here opens the next one, which rounds alike.
+A row sum follows numpy's order (:func:`sum_plan`, :func:`row_sums`), so the
+row sums equal the host's bit for bit; only the logs may differ from
+numpy's, by their own ulps. The total is numpy's ``ll.sum()`` of the
+downloaded ``ll`` (:func:`copy_ll_columns`), the host's order over rows.
+
+Two kernels (``csrc/ls_step.cu``) compute it, from the same (N, M) uint8
+site columns:
 
 * :func:`ls_eval` (``k4_ls_eval``): the whole evaluation in one launch. A
   block keeps its rows of ``left`` in shared memory across all sites, so the
@@ -15,20 +29,17 @@ previous site and the (M,) per-row log-sum accumulator ``ll``. Two kernels
 :func:`copy_ll_columns` chooses between them by shape alone: the one-launch
 kernel whenever a row fits in shared memory (:func:`eval_config`), else the
 site-by-site one. Both are hand-written kernels; on a CUDA tensor neither
-gives way to a plain version.
-
-Precision: ``left`` and the row sums are f32, as on the TPU. ``ll`` is f64:
-it takes M adds a site, costs nothing, and keeps the total's drift from
-growing with N (the JAX scan carried it in f32; the host is f64 throughout).
-So the result is f32-close to the host's, not equal to it, which is why the
-route runs only when ``PBWT_TORCH_DEVICE`` asks for it
-(:func:`pbwt_tpu_torch.ops.device_requested` with ``exact=False``).
+gives way to a plain version. The twins (:func:`ls_step_plain`,
+:func:`ls_eval_plain`) are plain torch f64 with the same order of the row
+sums, so that twin and kernel agree to the bit on one device.
 
 Rows and columns are exactly M: the TPU's padding, column mask and row
 liveness have no counterpart.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -38,64 +49,245 @@ from . import kernels, resolve_device
 SMEM_OPTIN = 232_448    # dynamic shared memory a block may opt in to (sm_90)
 SM_COUNT = 132          # H100 SXM
 EVAL_MAX_WARPS = 32     # warps of a k4_ls_eval block
+EVAL_MAX_SPLIT = 16     # most warps a row in k4_ls_eval
 COL_ALIGN = 16          # site columns start on 16 bytes (cp.async)
+
+# numpy's order of left.sum(axis=1): a row cut into chunks, each summed by
+# pairwise_sum in leaves of at most PAIRWISE_LEAF elements. numpy 2.0 cuts a
+# C-contiguous row at its ufunc buffer (8,192 elements); numpy 2.3.5 passes
+# the whole row (WHOLE_ROW). numpy_chunk finds which the installed numpy does
+NUMPY_BUFSIZE = 8192
+WHOLE_ROW = 0
+NUMPY_CHUNKS = (NUMPY_BUFSIZE, WHOLE_ROW)
+PAIRWISE_LEAF = 128
+PLAN_HEAD = 4           # leaves, inner nodes, heights, root
+# the probe of numpy_chunk: rows over three buffers and a ragged end
+PROBE_M = 3 * NUMPY_BUFSIZE + 77
+# the twin's row sums take rows in blocks of about this many elements
+PLAIN_BLOCK_ELEMENTS = 1 << 25
+
+
+@functools.cache
+def numpy_chunk() -> int:
+    """The chunk of NUMPY_CHUNKS in which the installed numpy sums a
+    C-contiguous f64 row, found by summing two probe rows of PROBE_M values
+    over many orders of magnitude both ways; NUMPY_BUFSIZE if neither
+    matches (the tests then fail: they hold the order against numpy)."""
+    rng = np.random.RandomState(0)
+    a = rng.random_sample((2, PROBE_M)) * np.exp(
+        3 * rng.standard_normal((2, PROBE_M)))
+    want = a.sum(axis=1)
+    for chunk in NUMPY_CHUNKS:
+        if np.array_equal(row_sums(torch.from_numpy(a), chunk).numpy(), want):
+            return chunk
+    return NUMPY_BUFSIZE
+
+
+def sum_plan(M: int, chunk: int | None = None) -> np.ndarray:
+    """numpy's order of the sum of a row of M f64 values, as an int32 array:
+    [L, T, heights, root], the L + 1 starts of the leaves, the heights + 1
+    offsets of the inner nodes sorted by height, their T left children and
+    their T right children. Node l < L is leaf l, node L + t inner node t,
+    the sum of its two children.
+
+    The row is cut into chunks of ``chunk`` elements (None: the installed
+    numpy's, :func:`numpy_chunk`; WHOLE_ROW: one chunk), whose sums are
+    added from the left. A chunk is numpy's pairwise_sum: a leaf when it has
+    at most PAIRWISE_LEAF elements, else split at n/2 - (n/2) % 8. A leaf of
+    n >= 8 elements is 8 strided accumulators combined as
+    ((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7)), then its last n % 8 elements in
+    order; a shorter one a sum from 0."""
+    return _sum_plan(M, numpy_chunk() if chunk is None else chunk)
+
+
+@functools.lru_cache(maxsize=16)
+def _sum_plan(M: int, chunk: int) -> np.ndarray:
+    if M < 1:
+        raise ValueError(f"sum_plan: a row needs M >= 1, got {M}")
+    chunk = chunk or M
+    # leaves: their starts; inner: (left, right, height), each node as
+    # ("leaf", index) or ("inner", index)
+    leaves, inner = [], []
+
+    def pairwise(start, n):
+        if n <= PAIRWISE_LEAF:
+            leaves.append(start)
+            return ("leaf", len(leaves) - 1), 0
+        n2 = n // 2
+        n2 -= n2 % 8
+        a, ha = pairwise(start, n2)
+        b, hb = pairwise(start + n2, n - n2)
+        inner.append((a, b, 1 + max(ha, hb)))
+        return ("inner", len(inner) - 1), 1 + max(ha, hb)
+
+    acc = None
+    for c0 in range(0, M, chunk):
+        node = pairwise(c0, min(chunk, M - c0))
+        if acc is None:
+            acc = node
+        else:
+            h = 1 + max(acc[1], node[1])
+            inner.append((acc[0], node[0], h))
+            acc = ("inner", len(inner) - 1), h
+    starts = leaves + [M]
+    L, T = len(leaves), len(inner)
+    order = sorted(range(T), key=lambda t: inner[t][2])   # stable
+    rank = {t: r for r, t in enumerate(order)}
+
+    def index(node):
+        return node[1] if node[0] == "leaf" else L + rank[node[1]]
+
+    heights = max((h for _, _, h in inner), default=0)
+    offsets = np.searchsorted([inner[t][2] for t in order],
+                              np.arange(1, heights + 2)).tolist()
+    left = [index(inner[t][0]) for t in order]
+    right = [index(inner[t][1]) for t in order]
+    plan = [L, T, heights, index(acc[0]), *starts, *offsets, *left, *right]
+    out = np.asarray(plan, np.int32)
+    out.setflags(write=False)
+    return out
+
+
+def plan_nodes(M: int) -> int:
+    """Leaves and inner nodes of :func:`sum_plan` (M)."""
+    plan = sum_plan(M)
+    return int(plan[0] + plan[1])
+
+
+@functools.lru_cache(maxsize=16)
+def _plain_plan(M: int, device: torch.device, chunk: int):
+    """:func:`sum_plan` (M, chunk) as the twin's gather indices on
+    ``device``: the (L, 16, 8) element of each leaf's accumulators and the
+    (L, 7) of its remainder, M where there is none (a zero column), and the
+    inner nodes' heights as (left, right) index tensors."""
+    plan = sum_plan(M, chunk)
+    L, T, heights = (int(v) for v in plan[:3])
+    starts = plan[PLAN_HEAD:PLAN_HEAD + L + 1]
+    acc = np.full((L, PAIRWISE_LEAF // 8, 8), M, np.int64)
+    rest = np.full((L, 7), M, np.int64)
+    for leaf in range(L):
+        s, n = int(starts[leaf]), int(starts[leaf + 1] - starts[leaf])
+        n8 = n - n % 8 if n >= 8 else 0
+        acc[leaf, :n8 // 8] = np.arange(s, s + n8).reshape(-1, 8)
+        rest[leaf, :n - n8] = np.arange(s + n8, s + n)
+    off = plan[PLAN_HEAD + L + 1:PLAN_HEAD + L + 2 + heights]
+    left = plan[PLAN_HEAD + L + 2 + heights:][:T]
+    right = plan[PLAN_HEAD + L + 2 + heights + T:][:T]
+    levels = [tuple(torch.from_numpy(np.asarray(v[a:b], np.int64)).to(device)
+                    for v in (left, right))
+              for a, b in zip(off[:-1], off[1:])]
+    return (torch.from_numpy(acc).to(device), torch.from_numpy(rest).to(device),
+            levels, L, int(plan[3]))
+
+
+def row_sums(a: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
+    """Plain twin of the kernels' row sum: (rows, M) f64 -> (rows,) f64,
+    each row summed in numpy's order (:func:`sum_plan`, ``chunk`` as
+    there), so equal bit for bit to ``a.numpy().sum(axis=1)``. The
+    accumulators of all leaves are summed at once, with zeros after their
+    last element (x + 0 is x)."""
+    rows, M = a.shape
+    chunk = numpy_chunk() if chunk is None else chunk
+    acc_idx, rest_idx, levels, L, root = _plain_plan(M, a.device, chunk)
+    padded = torch.cat([a, a.new_zeros(rows, 1)], 1)
+    acc = padded[:, acc_idx]                         # (rows, L, 16, 8)
+    r = acc[:, :, 0]
+    for q in range(1, acc.shape[2]):
+        r = r + acc[:, :, q]
+    r = r[..., 0::2] + r[..., 1::2]
+    r = r[..., 0::2] + r[..., 1::2]
+    s = r[..., 0] + r[..., 1]
+    rest = padded[:, rest_idx]
+    for q in range(rest.shape[2]):
+        s = s + rest[:, :, q]
+    nodes = torch.empty((rows, L + sum(len(lv[0]) for lv in levels)),
+                        dtype=a.dtype, device=a.device)
+    nodes[:, :L] = s
+    at = L
+    for left, right in levels:
+        nodes[:, at:at + len(left)] = nodes[:, left] + nodes[:, right]
+        at += len(left)
+    return nodes[:, root]
 
 
 def _constants(M: int, theta: float, rho: float):
-    """(rho1, rho_m, theta, theta1) as the f32 values both versions use."""
-    return tuple(float(np.float32(v)) for v in
-                 (1.0 - rho, rho / (M - 1.0), theta, 1.0 - theta))
+    """(rho1, rho_m, theta, theta1) as the host computes them, in f64."""
+    return 1.0 - rho, rho / (M - 1.0), theta, 1.0 - theta
 
 
-def _check(x, left, invrs, ll, M: int) -> None:
+def _check(x, left, rs, ll, M: int) -> None:
     if M < 2:
         raise ValueError(f"ls_step: the copy model needs M >= 2, got {M}")
-    if (x.shape != (M,) or left.shape != (M, M) or invrs.shape != (M,)
+    if (x.shape != (M,) or left.shape != (M, M) or rs.shape != (M,)
             or ll.shape != (M,)):
         raise ValueError(f"ls_step: shapes {tuple(x.shape)}, "
-                         f"{tuple(left.shape)}, {tuple(invrs.shape)}, "
+                         f"{tuple(left.shape)}, {tuple(rs.shape)}, "
                          f"{tuple(ll.shape)} do not fit M = {M}")
 
 
-def ls_step_plain(x, left, invrs, ll, M: int, theta: float, rho: float):
-    """Plain twin of :func:`ls_step`, in torch ops on the whole matrix."""
-    _check(x, left, invrs, ll, M)
+def ls_step_plain(x, left, rs, ll, M: int, theta: float, rho: float):
+    """Plain twin of :func:`ls_step`, in torch f64 on blocks of rows."""
+    _check(x, left, rs, ll, M)
     rho1, rho_m, th, th1 = _constants(M, theta, rho)
-    fac = torch.where(x[:, None] == x[None, :], th1, th).to(torch.float32)
-    left.mul_((invrs * rho1)[:, None]).add_(rho_m).mul_(fac)
-    left.fill_diagonal_(0.0)
-    rs = left.sum(1).clamp_min(1e-30)
-    ll.add_(torch.log(rs.double()))
-    invrs.copy_(torch.reciprocal(rs))
+    fac = torch.tensor([th, th1], dtype=torch.float64, device=left.device)
+    step = max(1, PLAIN_BLOCK_ELEMENTS // M)
+    for r0 in range(0, M, step):
+        r1 = min(M, r0 + step)
+        blk = left[r0:r1]
+        blk.div_(rs[r0:r1, None]).mul_(rho1).add_(rho_m)
+        blk.mul_(fac[(x[r0:r1, None] == x[None, :]).long()])
+        rows = torch.arange(r1 - r0, device=left.device)
+        blk[rows, rows + r0] = 0.0
+        rs[r0:r1] = row_sums(blk)
+    ll.add_(torch.log(rs))
 
 
-def ls_step(x, left, invrs, ll, M: int, theta: float, rho: float):
+def ls_step(x, left, rs, ll, M: int, theta: float, rho: float):
     """One site of the copy model, in place (kernel K4, ``k4_ls_step``).
 
-    x: (M,) uint8 site column in natural order; left: (M, M) f32
-    un-normalised copy matrix; invrs: (M,) f32 reciprocal row sums of the
-    previous site (ones before the first); ll: (M,) f64 log row sums. CPU
-    tensors run the plain twin; CUDA tensors launch the kernel.
+    x: (M,) uint8 site column in natural order; left: (M, M) f64
+    un-normalised copy matrix of the previous site; rs: (M,) f64 its row
+    sums (ones before the first site), replaced by this site's; ll: (M,) f64
+    log row sums, accumulated. CPU tensors run the plain twin; CUDA tensors
+    launch the kernel.
     """
     if left.device.type == "cpu":
-        return ls_step_plain(x, left, invrs, ll, M, theta, rho)
-    dev = kernels.typed_cuda_tensors((x, torch.uint8), (left, torch.float32),
-                                     (invrs, torch.float32),
+        return ls_step_plain(x, left, rs, ll, M, theta, rho)
+    dev = kernels.typed_cuda_tensors((x, torch.uint8), (left, torch.float64),
+                                     (rs, torch.float64),
                                      (ll, torch.float64))
-    _check(x, left, invrs, ll, M)
+    _check(x, left, rs, ll, M)
     kernels.launch("k4_ls_step", dev.index, x.data_ptr(), left.data_ptr(),
-                   invrs.data_ptr(), ll.data_ptr(), M,
+                   rs.data_ptr(), ll.data_ptr(), M,
+                   _plan_on(M, dev).data_ptr(), plan_nodes(M),
                    *_constants(M, theta, rho), kernels.stream(dev))
 
 
+@functools.lru_cache(maxsize=16)
+def _plan_on(M: int, dev: torch.device) -> torch.Tensor:
+    """:func:`sum_plan` (M) on the card, uploaded once."""
+    return torch.from_numpy(sum_plan(M).copy()).to(dev)
+
+
 def initial_state(M: int, device):
-    """(left, invrs, ll) before the first site (likelihood_jax.py:95-97,
-    111): left = 1/(M-1) off the diagonal, invrs = 1, ll = 0."""
-    left = torch.full((M, M), 1.0 / (M - 1.0), dtype=torch.float32,
-                      device=device)
+    """(left, rs, ll) before the first site: left = 1/(M-1) off the
+    diagonal, rs = 1, ll = 0. On a card, raises when the matrix does not
+    fit in its free memory."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        need = 8 * M * M + 16 * M
+        free = (torch.cuda.mem_get_info(dev)[0]
+                + torch.cuda.memory_reserved(dev)
+                - torch.cuda.memory_allocated(dev))
+        if need > free:
+            raise ValueError(f"the copy model of {M} haplotypes needs {need} "
+                             f"bytes of device memory for its (M, M) f64 "
+                             f"matrix and {free} are free")
+    left = torch.full((M, M), 1.0 / (M - 1.0), dtype=torch.float64,
+                      device=dev)
     left.fill_diagonal_(0.0)
-    return (left, torch.ones(M, dtype=torch.float32, device=device),
-            torch.zeros(M, dtype=torch.float64, device=device))
+    return (left, torch.ones(M, dtype=torch.float64, device=dev),
+            torch.zeros(M, dtype=torch.float64, device=dev))
 
 
 def _check_cols(cols: torch.Tensor) -> tuple[int, int]:
@@ -108,25 +300,50 @@ def _check_cols(cols: torch.Tensor) -> tuple[int, int]:
     return N, M
 
 
-def ls_steps(cols: torch.Tensor, theta: float, rho: float) -> torch.Tensor:
+def _check_sums(sums, N: int, M: int, dev) -> None:
+    if sums is not None and (sums.shape != (N, M)
+                             or sums.dtype != torch.float64
+                             or sums.device != dev
+                             or not sums.is_contiguous()):
+        raise ValueError(f"ls_eval: sums must be a contiguous ({N}, {M}) "
+                         f"float64 tensor on {dev}")
+
+
+def ls_steps(cols: torch.Tensor, theta: float, rho: float,
+             sums: torch.Tensor | None = None) -> torch.Tensor:
     """An evaluation site by site: :func:`ls_step` over the rows of
-    ``cols`` from :func:`initial_state`. Returns ll (M,) f64."""
+    ``cols`` from :func:`initial_state`. Returns ll (M,) f64; ``sums``, if
+    given, takes each site's row sums."""
     N, M = _check_cols(cols)
+    _check_sums(sums, N, M, cols.device)
     state = initial_state(M, cols.device)
     for k in range(N):
         ls_step(cols[k].contiguous(), *state, M, theta, rho)
+        if sums is not None:
+            sums[k] = state[1]
     return state[2]
 
 
-def ls_eval_plain(cols: torch.Tensor, theta: float, rho: float
-                  ) -> torch.Tensor:
+def ls_eval_plain(cols: torch.Tensor, theta: float, rho: float,
+                  sums: torch.Tensor | None = None) -> torch.Tensor:
     """Plain twin of :func:`ls_eval`: the loop of :func:`ls_step_plain` over
     the sites."""
     N, M = _check_cols(cols)
+    _check_sums(sums, N, M, cols.device)
     state = initial_state(M, cols.device)
     for k in range(N):
         ls_step_plain(cols[k], *state, M, theta, rho)
+        if sums is not None:
+            sums[k] = state[1]
     return state[2]
+
+
+def eval_smem(M: int, R: int) -> int:
+    """Shared memory of a ``k4_ls_eval`` block of R rows: two column
+    buffers, then a row, its plan's nodes and its previous row sum in f64
+    for each row."""
+    mcol = -(-M // COL_ALIGN) * COL_ALIGN
+    return 2 * mcol + 8 * R * (M + plan_nodes(M) + 1)
 
 
 def eval_config(M: int, sms: int = SM_COUNT, smem: int = SMEM_OPTIN):
@@ -136,17 +353,18 @@ def eval_config(M: int, sms: int = SM_COUNT, smem: int = SMEM_OPTIN):
 
     R starts from the most rows the shared memory holds and is then cut to
     the fewest that keep the number of waves over the card's SMs, so the
-    last wave is as full as the others.
+    last wave is as full as the others. H gives a row's leaves (groups of
+    8 lanes a leaf, 4 a warp) as many lanes as the block's 32 warps allow,
+    up to EVAL_MAX_SPLIT warps.
     """
-    mrow = -(-M // 4) * 4                 # floats of a resident row
-    mcol = -(-M // COL_ALIGN) * COL_ALIGN   # bytes of a column buffer
-    fixed = 2 * mcol + 2 * 4 * EVAL_MAX_WARPS     # columns, partial sums
-    r_max = min((smem - fixed) // (4 * mrow), EVAL_MAX_WARPS)
+    per_row = eval_smem(M, 1) - eval_smem(M, 0)
+    r_max = min((smem - eval_smem(M, 0)) // per_row, EVAL_MAX_WARPS)
     if r_max < 1:
         return None
     waves = -(-(-(-M // r_max)) // sms)
     R = -(-M // (waves * sms))
-    H = max(1, min(24 // R, 16, -(-(M // 4) // 32)))
+    leaves = int(sum_plan(M)[0])
+    H = max(1, min(EVAL_MAX_WARPS // R, EVAL_MAX_SPLIT, -(-leaves // 4)))
     return R, H
 
 
@@ -175,33 +393,37 @@ def aligned_columns(cols: torch.Tensor) -> torch.Tensor:
     return out[:, :M]
 
 
-def ls_eval(cols: torch.Tensor, theta: float, rho: float) -> torch.Tensor:
+def ls_eval(cols: torch.Tensor, theta: float, rho: float,
+            sums: torch.Tensor | None = None) -> torch.Tensor:
     """A whole evaluation of the copy model in one launch (kernel K4,
     ``k4_ls_eval``): what N calls of :func:`ls_step` compute from
     :func:`initial_state`.
 
     cols: (N, M) uint8 site columns in natural order. Returns ll (M,) f64,
-    the per-row sums of the log row sums. CPU tensors run the plain twin;
-    CUDA tensors launch the kernel, and raise when a row does not fit in
-    shared memory (:func:`eval_config`).
+    the per-row sums of the log row sums; ``sums``, an (N, M) f64 tensor if
+    given, takes each site's row sums. CPU tensors run the plain twin; CUDA
+    tensors launch the kernel, and raise when a row does not fit in shared
+    memory (:func:`eval_config`).
     """
     N, M = _check_cols(cols)
     if cols.device.type == "cpu":
-        return ls_eval_plain(cols, theta, rho)
+        return ls_eval_plain(cols, theta, rho, sums)
     if cols.device.type != "cuda":
         raise ValueError(f"pbwt_tpu_torch: no kernel for device "
                          f"{cols.device}")
     dev = cols.device
+    _check_sums(sums, N, M, dev)
     cfg = _config_on(M, dev)
     if cfg is None:
         raise ValueError(f"ls_eval: a row of M = {M} does not fit in shared "
                          "memory; use ls_steps")
     cols = aligned_columns(cols)
     ll = torch.empty(M, dtype=torch.float64, device=dev)
-    init = float(np.float32(1.0 / (M - 1.0)))
     kernels.launch("k4_ls_eval", dev.index, cols.data_ptr(), cols.stride(0),
-                   N, M, *cfg, init, *_constants(M, theta, rho),
-                   ll.data_ptr(), kernels.stream(dev))
+                   N, M, *cfg, _plan_on(M, dev).data_ptr(), plan_nodes(M),
+                   1.0 / (M - 1.0), *_constants(M, theta, rho),
+                   ll.data_ptr(), 0 if sums is None else sums.data_ptr(),
+                   kernels.stream(dev))
     return ll
 
 
@@ -219,17 +441,18 @@ def upload_columns(X: np.ndarray, device=None) -> torch.Tensor:
 def copy_ll_columns(cols: torch.Tensor, theta: float, rho: float) -> float:
     """Drop-one log likelihood from resident site columns: one launch of
     ``k4_ls_eval`` when a row fits in shared memory, else site by site on
-    ``k4_ls_step`` (M above about 38,000). On the CPU both are the same
-    plain loop."""
+    ``k4_ls_step`` (M above about 22,900). On the CPU both are the same
+    plain loop. The per-row sums come back to the host and are added by
+    numpy, in the host's order."""
     _, M = _check_cols(cols)
     resident = _config_on(M, cols.device) is not None
     ll = (ls_eval if resident else ls_steps)(cols, theta, rho)
-    return float(ll.sum())
+    return float(ll.cpu().numpy().sum())
 
 
 def copy_ll_device(X: np.ndarray, theta: float, rho: float,
                    device=None) -> float:
     """Li-Stephens drop-one log likelihood of the (M, N) haplotypes X on
-    ``device``; f32-close to the host's copy_log_likelihood_drop_one (the
-    contract of ``pbwt_tpu.ops.likelihood_jax.copy_ll_device``)."""
+    ``device``: the host's copy_log_likelihood_drop_one, its row sums bit
+    for bit, its logs within their ulps."""
     return copy_ll_columns(upload_columns(X, device), theta, rho)

@@ -1,8 +1,7 @@
 """The port's CLI end to end in a subprocess, on the CPU with the device
 route named (PBWT_TORCH_DEVICE=cpu, plain twins) or left to its default:
-stdout byte-identical to the JAX package's CLI on its host engine (f32-close
-for the copy model's device route), and neither jax nor any module of the
-JAX package imported. A subprocess, because this test process imports both
+stdout byte-identical to the JAX package's CLI on its host engine, and
+neither jax nor any module of the JAX package imported. A subprocess, because this test process imports both
 (tests/conftest.py)."""
 
 import json
@@ -208,8 +207,8 @@ def _port_and_host(args, port_env):
                                   ["-fitAlphaBeta", "2"],
                                   ["-llCopyModel", "0.05", "0.01"]])
 def test_cli_likelihood_equals_host(ll_panel, args):
-    """-fitAlphaBeta is the host's code, and -llCopyModel stays on the host
-    unless PBWT_TORCH_DEVICE is set: stdout byte-identical."""
+    """-fitAlphaBeta is the host's code, and -llCopyModel runs on the host
+    without a card and PBWT_TORCH_DEVICE unset: stdout byte-identical."""
     port, host = _port_and_host(["-read", ll_panel, *args], {})
     assert port.count("\n") >= 2
     assert port == host
@@ -219,24 +218,16 @@ NUMBER = re.compile(r"-?\d+\.\d+")
 
 
 def test_cli_llcopymodel_device_route(ll_panel):
-    """PBWT_TORCH_DEVICE=cpu: the fit runs on K4's twin. The
-    text equals the host's outside the numbers; LLs agree to 1e-5
-    relative; the fitted theta and rho to 1% (the line search's bracket
-    tolerance is 1.001, and f32 noise can move its last choice)."""
+    """PBWT_TORCH_DEVICE=cpu: the fit runs on K4's twin, whose row sums are
+    the host's bit for bit. stdout is the host's, byte for byte."""
     port, host = _port_and_host(["-read", ll_panel, "-llCopyModel", "0.05",
                                  "0.01"],
                                 {"PBWT_TORCH_DEVICE": "cpu",
                                  "CUDA_VISIBLE_DEVICES": ""})
-    assert port != host
-    assert NUMBER.sub("#", port) == NUMBER.sub("#", host)
     first, fit = ([float(v) for v in NUMBER.findall(line)]
                   for line in port.splitlines())
-    first_h, fit_h = ([float(v) for v in NUMBER.findall(line)]
-                      for line in host.splitlines())
-    assert first[:2] == first_h[:2] == [0.05, 0.01]
-    np.testing.assert_allclose(first[2:], first_h[2:], rtol=1e-5)
-    np.testing.assert_allclose(fit[:2], fit_h[:2], rtol=1e-2)
-    np.testing.assert_allclose(fit[2:], fit_h[2:], rtol=1e-5)
+    assert first[:2] == [0.05, 0.01] and len(fit) == 4
+    assert port == host
 
 
 def test_cli_io_commands_equal_host(tmp_path):

@@ -710,13 +710,12 @@ def test_no_device_is_an_error_not_the_cpu(monkeypatch):
     with pytest.raises(ops.NoDeviceError):
         port_build.build_pbwt_device(X)
     monkeypatch.setenv("PBWT_TORCH_DEVICE", "1")
-    for exact in (True, False):
-        with pytest.raises(ops.NoDeviceError):
-            ops.device_requested(exact)
+    with pytest.raises(ops.NoDeviceError):
+        ops.device_requested()
     with pytest.raises(ops.NoDeviceError):
         ops.resolve_device(None)
     monkeypatch.setenv("PBWT_TORCH_DEVICE", "cpu")
-    assert ops.device_requested(exact=False) is True
+    assert ops.device_requested() is True
     assert ops.resolve_device(None) == torch.device("cpu")
     monkeypatch.setenv("PBWT_TORCH_DEVICE", "gpu")
     with pytest.raises(ValueError, match="expected 0, 1 or cpu"):

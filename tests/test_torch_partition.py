@@ -191,7 +191,8 @@ def test_ad_trajectory_rejects_what_the_kernel_does_not_take():
 
 
 _CTYPES = {"ptr": ctypes.c_void_p, "int": ctypes.c_int,
-           "long long": ctypes.c_longlong, "float": ctypes.c_float}
+           "long long": ctypes.c_longlong, "float": ctypes.c_float,
+           "double": ctypes.c_double}
 
 
 def _c_entries():
@@ -218,9 +219,9 @@ def _c_entries():
 
 def test_c_prototypes_match_ctypes_signatures():
     """Every extern "C" entry of csrc/*.cu has the argument count and the
-    pointer / int / long long / float kinds that ops/kernels.py binds it
-    with: a mismatch would corrupt a call and cannot be seen without a
-    card."""
+    pointer / int / long long / float / double kinds that ops/kernels.py
+    binds it with: a mismatch would corrupt a call and cannot be seen
+    without a card."""
     entries = _c_entries()
     bound = {**kernels._SIGNATURES, **kernels._AUX_SIGNATURES}
     assert set(entries) == set(bound)
