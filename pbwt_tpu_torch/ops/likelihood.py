@@ -71,8 +71,8 @@ PLAIN_BLOCK_ELEMENTS = 1 << 25
 def numpy_chunk() -> int:
     """The chunk of NUMPY_CHUNKS in which the installed numpy sums a
     C-contiguous f64 row, found by summing two probe rows of PROBE_M values
-    over many orders of magnitude both ways; NUMPY_BUFSIZE if neither
-    matches (the tests then fail: they hold the order against numpy)."""
+    over many orders of magnitude both ways. Raises when neither matches:
+    the row sums would then not be the host's."""
     rng = np.random.RandomState(0)
     a = rng.random_sample((2, PROBE_M)) * np.exp(
         3 * rng.standard_normal((2, PROBE_M)))
@@ -80,7 +80,8 @@ def numpy_chunk() -> int:
     for chunk in NUMPY_CHUNKS:
         if np.array_equal(row_sums(torch.from_numpy(a), chunk).numpy(), want):
             return chunk
-    return NUMPY_BUFSIZE
+    raise RuntimeError(f"numpy {np.__version__} sums a row in none of the "
+                       f"orders the copy model knows (chunks {NUMPY_CHUNKS})")
 
 
 def sum_plan(M: int, chunk: int | None = None) -> np.ndarray:
@@ -350,6 +351,9 @@ def eval_config(M: int, sms: int = SM_COUNT, smem: int = SMEM_OPTIN):
     """Launch shape of ``k4_ls_eval`` for M haplotypes: (R, H), R rows of
     ``left`` resident in each block's shared memory and H warps along each
     row; None when not even one row fits beside the two column buffers.
+    The plan's nodes take shared memory too, so the widest row that fits
+    depends on the installed numpy's order (:func:`numpy_chunk`): 22,936
+    haplotypes in numpy 2.0's, 22,832 in numpy 2.3's, on the H100.
 
     R starts from the most rows the shared memory holds and is then cut to
     the fewest that keep the number of waves over the card's SMs, so the
@@ -441,7 +445,7 @@ def upload_columns(X: np.ndarray, device=None) -> torch.Tensor:
 def copy_ll_columns(cols: torch.Tensor, theta: float, rho: float) -> float:
     """Drop-one log likelihood from resident site columns: one launch of
     ``k4_ls_eval`` when a row fits in shared memory, else site by site on
-    ``k4_ls_step`` (M above about 22,900). On the CPU both are the same
+    ``k4_ls_step`` (M above about 22,800, :func:`eval_config`). On the CPU both are the same
     plain loop. The per-row sums come back to the host and are added by
     numpy, in the host's order."""
     _, M = _check_cols(cols)
