@@ -17,15 +17,18 @@ row sums equal the host's bit for bit; only the logs may differ from
 numpy's, by their own ulps. The total is numpy's ``ll.sum()`` of the
 downloaded ``ll`` (:func:`copy_ll_columns`), the host's order over rows.
 
-Two kernels (``csrc/ls_step.cu``) compute it, from the same (N, M) uint8
-site columns:
+Two kernels (``csrc/ls_step.cu``) compute it, from the site columns packed
+as bits (:class:`SiteColumns`):
 
 * :func:`ls_eval` (``k4_ls_eval``): the whole evaluation in one launch. A
-  block keeps its rows of ``left`` in shared memory across all sites, so the
+  block keeps its row of ``left`` in shared memory across all sites, so the
   matrix never exists in device memory; only the site columns move.
 * :func:`ls_step` (``k4_ls_step``): one site over the matrix in device
   memory, in place; an evaluation is N launches.
 
+Both take a row sum as the kernels' split of numpy's tree (:func:`eval_plan`:
+two lanes a leaf, the lower nodes by shuffles inside a warp, the upper ones
+in shared memory), which :func:`row_sums` evaluates in the same order.
 :func:`copy_ll_columns` chooses between them by shape alone: the one-launch
 kernel whenever a row fits in shared memory (:func:`eval_config`), else the
 site-by-site one. Both are hand-written kernels; on a CUDA tensor neither
@@ -40,6 +43,7 @@ liveness have no counterpart.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -47,10 +51,12 @@ import torch
 from . import kernels, resolve_device
 
 SMEM_OPTIN = 232_448    # dynamic shared memory a block may opt in to (sm_90)
-SM_COUNT = 132          # H100 SXM
-EVAL_MAX_WARPS = 32     # warps of a k4_ls_eval block
-EVAL_MAX_SPLIT = 16     # most warps a row in k4_ls_eval
-COL_ALIGN = 16          # site columns start on 16 bytes (cp.async)
+EVAL_MAX_WARPS = 20     # warps of a k4_ls_eval block (its launch bound)
+RING = 3                # site columns in flight in a k4_ls_eval block
+LANES = 32              # a warp
+LEAVES = 16             # leaves a warp takes: two lanes a leaf
+MAX_ROUNDS = 8          # shuffle heights inside a warp the kernels unroll
+COL_ALIGN = 16          # packed site columns: rows of 16 bytes (cp.async)
 
 # numpy's order of left.sum(axis=1): a row cut into chunks, each summed by
 # pairwise_sum in leaves of at most PAIRWISE_LEAF elements. numpy 2.0 cuts a
@@ -155,15 +161,110 @@ def plan_nodes(M: int) -> int:
     return int(plan[0] + plan[1])
 
 
+EVAL_HEAD = 8   # leaves, nodes, rounds, upper nodes and heights, root, warps,
+                # row length
+
+
+def eval_plan(M: int, chunk: int | None = None) -> np.ndarray:
+    """The kernels' split of :func:`sum_plan` (M, ``chunk`` as there), as
+    an int32 array.
+
+    Lanes 2l and 2l + 1 of a row's warps (warp l // LEAVES) take leaf l,
+    4 of its 8 accumulators each. A node whose leaves all lie in one warp
+    is summed there by shuffles, one round a height: in round h - 1 the
+    lanes of its leftmost leaf add the values of the lanes of its right
+    child's leftmost leaf. The highest such node over each stretch of
+    leaves (or a leaf that no such node covers) goes to the row's nodes in
+    shared memory; the
+    upper nodes, whose children lie in different warps, are summed from
+    there a height at a time. Every node is still the sum of its two
+    children, so the row sum is numpy's bit for bit (:func:`row_sums`
+    evaluates this split).
+
+    Layout: [L, L + T, rounds, U, UH, root, W, row length]; the L + 1 leaf
+    starts; the W + 1 offsets of each warp's elements in a row as
+    ``k4_ls_eval`` keeps it in shared memory (element 8t + 4h + u of the
+    leaf of lane j = 2l + h of warp w, u < 4, is the lane's element q = 4t
+    + u, at offset[w] + 2 * LANES * (q // 2) + 2j + q % 2: a lane's
+    elements side by side in pairs, so that a warp reads 16 bytes a lane;
+    a warp takes LANES times the most any of its lanes holds, rounded up
+    to pairs); rounds x L source leaves in the warp (-1: no add in that
+    round); L destination nodes (-1: none); the UH + 1 offsets of the upper
+    nodes by height; their U nodes, left children and right children.
+    Node indices are sum_plan's."""
+    return _eval_plan(M, numpy_chunk() if chunk is None else chunk)
+
+
+@functools.lru_cache(maxsize=16)
+def _eval_plan(M: int, chunk: int) -> np.ndarray:
+    plan = _sum_plan(M, chunk)
+    L, T, heights, root = (int(v) for v in plan[:PLAN_HEAD])
+    starts = plan[PLAN_HEAD:PLAN_HEAD + L + 1].astype(np.int64)
+    off = plan[PLAN_HEAD + L + 1:PLAN_HEAD + L + 2 + heights]
+    left = plan[PLAN_HEAD + L + 2 + heights:][:T].astype(np.int64)
+    right = plan[PLAN_HEAD + L + 2 + heights + T:][:T].astype(np.int64)
+    # each node's leaves [lo, hi), height and parent
+    lo = np.concatenate([np.arange(L), np.zeros(T, np.int64)])
+    hi = np.concatenate([np.arange(1, L + 1), np.zeros(T, np.int64)])
+    height = np.zeros(L + T, np.int64)
+    parent = np.full(L + T, -1, np.int64)
+    for h in range(heights):
+        for t in range(off[h], off[h + 1]):
+            n = L + t
+            lo[n], hi[n], height[n] = lo[left[t]], hi[right[t]], h + 1
+            parent[left[t]] = parent[right[t]] = n
+    inwarp = lo // LEAVES == (hi - 1) // LEAVES
+    rounds = int(height[inwarp].max())
+    if rounds > MAX_ROUNDS:
+        raise ValueError(f"eval_plan: {rounds} shuffle rounds at M = {M}, "
+                         f"the kernels unroll {MAX_ROUNDS}")
+    code = np.full((rounds, L), -1, np.int64)
+    for t in np.flatnonzero(inwarp[L:]):
+        code[height[L + t] - 1, lo[L + t]] = lo[right[t]] % LEAVES
+    top = np.flatnonzero(inwarp & ((parent < 0) | ~inwarp[parent]))
+    dst = np.full(L, -1, np.int64)
+    dst[lo[top]] = top
+    upper = np.flatnonzero(~inwarp[L:])      # by height, as sum_plan's
+    uheight = height[L + upper]
+    uoff = [*np.searchsorted(uheight, np.unique(uheight)), len(upper)]
+    W = -(-L // LEAVES)
+    size = np.diff(starts)
+    half = 4 * (size // 8) + np.minimum(size % 8, 4)  # the most a lane holds
+    pairs = [-(-int(half[w * LEAVES:(w + 1) * LEAVES].max()) // 2)
+             for w in range(W)]
+    wbase = np.cumsum([0] + [2 * LANES * n for n in pairs])
+    out = np.asarray([L, L + T, rounds, len(upper), len(uoff) - 1, root, W,
+                      wbase[-1], *starts, *wbase, *code.ravel(), *dst, *uoff,
+                      *(L + upper), *left[upper], *right[upper]], np.int32)
+    out.setflags(write=False)
+    return out
+
+
+def _split(M: int, chunk: int):
+    """:func:`eval_plan` (M, chunk) unpacked: (L, nodes, root, W, row
+    length, starts, warp offsets, the rounds' source lanes (rounds, L),
+    destinations, upper offsets, upper nodes, lefts, rights)."""
+    p = eval_plan(M, chunk)
+    L, nodes, rounds, U, UH, root, W, rowlen = (int(v)
+                                                for v in p[:EVAL_HEAD])
+    parts, at = [], EVAL_HEAD
+    for n in (L + 1, W + 1, rounds * L, L, UH + 1, U, U, U):
+        parts.append(p[at:at + n].astype(np.int64))
+        at += n
+    parts[2] = parts[2].reshape(rounds, L)
+    return (L, nodes, root, W, rowlen, *parts)
+
+
 @functools.lru_cache(maxsize=16)
 def _plain_plan(M: int, device: torch.device, chunk: int):
-    """:func:`sum_plan` (M, chunk) as the twin's gather indices on
-    ``device``: the (L, 16, 8) element of each leaf's accumulators and the
-    (L, 7) of its remainder, M where there is none (a zero column), and the
-    inner nodes' heights as (left, right) index tensors."""
-    plan = sum_plan(M, chunk)
-    L, T, heights = (int(v) for v in plan[:3])
-    starts = plan[PLAN_HEAD:PLAN_HEAD + L + 1]
+    """The kernels' split (:func:`eval_plan` (M, chunk)) as the twin's
+    gather indices on ``device``: the (L, 16, 8) element of each leaf's
+    accumulators and the (L, 7) of its remainder, M where there is none (a
+    zero column); each shuffle round as (lanes that add, the lane each
+    reads); the lanes written to the nodes and their nodes; the upper
+    nodes a height at a time as (node, left, right) index tensors."""
+    (L, nodes, root, _, _, starts, _, code, dst, uoff, unode, uleft,
+     uright) = _split(M, chunk)
     acc = np.full((L, PAIRWISE_LEAF // 8, 8), M, np.int64)
     rest = np.full((L, 7), M, np.int64)
     for leaf in range(L):
@@ -171,25 +272,33 @@ def _plain_plan(M: int, device: torch.device, chunk: int):
         n8 = n - n % 8 if n >= 8 else 0
         acc[leaf, :n8 // 8] = np.arange(s, s + n8).reshape(-1, 8)
         rest[leaf, :n - n8] = np.arange(s + n8, s + n)
-    off = plan[PLAN_HEAD + L + 1:PLAN_HEAD + L + 2 + heights]
-    left = plan[PLAN_HEAD + L + 2 + heights:][:T]
-    right = plan[PLAN_HEAD + L + 2 + heights + T:][:T]
-    levels = [tuple(torch.from_numpy(np.asarray(v[a:b], np.int64)).to(device)
-                    for v in (left, right))
-              for a, b in zip(off[:-1], off[1:])]
-    return (torch.from_numpy(acc).to(device), torch.from_numpy(rest).to(device),
-            levels, L, int(plan[3]))
+    lane = np.arange(L)
+    rounds = [(src >= 0, np.where(src >= 0, lane - lane % LEAVES + src, lane))
+              for src in code]
+    top = np.flatnonzero(dst >= 0)
+    levels = [(unode[a:b], uleft[a:b], uright[a:b])
+              for a, b in zip(uoff[:-1], uoff[1:])]
+
+    def t(v):
+        return torch.from_numpy(np.asarray(v)).to(device)
+
+    return (t(acc), t(rest), [(t(a), t(s)) for a, s in rounds], t(top),
+            t(dst[top]), [tuple(t(v) for v in lv) for lv in levels], L,
+            nodes, root)
 
 
 def row_sums(a: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
     """Plain twin of the kernels' row sum: (rows, M) f64 -> (rows,) f64,
-    each row summed in numpy's order (:func:`sum_plan`, ``chunk`` as
-    there), so equal bit for bit to ``a.numpy().sum(axis=1)``. The
-    accumulators of all leaves are summed at once, with zeros after their
-    last element (x + 0 is x)."""
+    each row summed in numpy's order through the kernels' split of its
+    tree (:func:`eval_plan`, ``chunk`` as :func:`sum_plan`'s), so equal
+    bit for bit to ``a.numpy().sum(axis=1)``. The accumulators of all
+    leaves are summed at once, with zeros after their last element (x + 0
+    is x); then the shuffle rounds, the written nodes and the upper nodes
+    as the kernels take them."""
     rows, M = a.shape
     chunk = numpy_chunk() if chunk is None else chunk
-    acc_idx, rest_idx, levels, L, root = _plain_plan(M, a.device, chunk)
+    (acc_idx, rest_idx, rounds, top, dst, levels, L, nodes,
+     root) = _plain_plan(M, a.device, chunk)
     padded = torch.cat([a, a.new_zeros(rows, 1)], 1)
     acc = padded[:, acc_idx]                         # (rows, L, 16, 8)
     r = acc[:, :, 0]
@@ -201,14 +310,13 @@ def row_sums(a: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
     rest = padded[:, rest_idx]
     for q in range(rest.shape[2]):
         s = s + rest[:, :, q]
-    nodes = torch.empty((rows, L + sum(len(lv[0]) for lv in levels)),
-                        dtype=a.dtype, device=a.device)
-    nodes[:, :L] = s
-    at = L
-    for left, right in levels:
-        nodes[:, at:at + len(left)] = nodes[:, left] + nodes[:, right]
-        at += len(left)
-    return nodes[:, root]
+    for adds, src in rounds:
+        s = torch.where(adds, s + s[:, src], s)
+    out = torch.empty((rows, nodes), dtype=a.dtype, device=a.device)
+    out[:, dst] = s[:, top]
+    for node, left, right in levels:
+        out[:, node] = out[:, left] + out[:, right]
+    return out[:, root]
 
 
 def _constants(M: int, theta: float, rho: float):
@@ -216,19 +324,21 @@ def _constants(M: int, theta: float, rho: float):
     return 1.0 - rho, rho / (M - 1.0), theta, 1.0 - theta
 
 
-def _check(x, left, rs, ll, M: int) -> None:
+def _check(left, rs, ll, M: int) -> None:
     if M < 2:
         raise ValueError(f"ls_step: the copy model needs M >= 2, got {M}")
-    if (x.shape != (M,) or left.shape != (M, M) or rs.shape != (M,)
-            or ll.shape != (M,)):
-        raise ValueError(f"ls_step: shapes {tuple(x.shape)}, "
-                         f"{tuple(left.shape)}, {tuple(rs.shape)}, "
-                         f"{tuple(ll.shape)} do not fit M = {M}")
+    if left.shape != (M, M) or rs.shape != (M,) or ll.shape != (M,):
+        raise ValueError(f"ls_step: shapes {tuple(left.shape)}, "
+                         f"{tuple(rs.shape)}, {tuple(ll.shape)} do not fit "
+                         f"M = {M}")
 
 
 def ls_step_plain(x, left, rs, ll, M: int, theta: float, rho: float):
     """Plain twin of :func:`ls_step`, in torch f64 on blocks of rows."""
-    _check(x, left, rs, ll, M)
+    _check(left, rs, ll, M)
+    if x.shape != (M,):
+        raise ValueError(f"ls_step: the site column {tuple(x.shape)} does "
+                         f"not fit M = {M}")
     rho1, rho_m, th, th1 = _constants(M, theta, rho)
     fac = torch.tensor([th, th1], dtype=torch.float64, device=left.device)
     step = max(1, PLAIN_BLOCK_ELEMENTS // M)
@@ -246,28 +356,40 @@ def ls_step_plain(x, left, rs, ll, M: int, theta: float, rho: float):
 def ls_step(x, left, rs, ll, M: int, theta: float, rho: float):
     """One site of the copy model, in place (kernel K4, ``k4_ls_step``).
 
-    x: (M,) uint8 site column in natural order; left: (M, M) f64
-    un-normalised copy matrix of the previous site; rs: (M,) f64 its row
-    sums (ones before the first site), replaced by this site's; ll: (M,) f64
-    log row sums, accumulated. CPU tensors run the plain twin; CUDA tensors
-    launch the kernel.
+    x: (M,) uint8 site column of 0/1 alleles in natural order; left: (M,
+    M) f64 un-normalised copy matrix of the previous site; rs: (M,) f64 its
+    row sums (ones before the first site), replaced by this site's; ll:
+    (M,) f64 log row sums, accumulated. CPU tensors run the plain twin;
+    CUDA tensors pack the column as bits (:func:`pack_columns`) and launch
+    the kernel.
     """
     if left.device.type == "cpu":
         return ls_step_plain(x, left, rs, ll, M, theta, rho)
-    dev = kernels.typed_cuda_tensors((x, torch.uint8), (left, torch.float64),
+    ls_step_bits(pack_columns(x[None]).words[0], left, rs, ll, M, theta, rho)
+
+
+def ls_step_bits(col, left, rs, ll, M: int, theta: float, rho: float):
+    """:func:`ls_step` on the card from a packed site column (a row of
+    :attr:`SiteColumns.words`), as an evaluation site by site runs it."""
+    dev = kernels.typed_cuda_tensors((col, torch.int32),
+                                     (left, torch.float64),
                                      (rs, torch.float64),
                                      (ll, torch.float64))
-    _check(x, left, rs, ll, M)
-    kernels.launch("k4_ls_step", dev.index, x.data_ptr(), left.data_ptr(),
+    _check(left, rs, ll, M)
+    if col.shape != (_row_words(M),):
+        raise ValueError(f"ls_step: a packed column of M = {M} has "
+                         f"{_row_words(M)} words, got {tuple(col.shape)}")
+    plan = eval_plan(M)
+    kernels.launch("k4_ls_step", dev.index, col.data_ptr(), left.data_ptr(),
                    rs.data_ptr(), ll.data_ptr(), M,
-                   _plan_on(M, dev).data_ptr(), plan_nodes(M),
+                   _plan_on(M, dev).data_ptr(), int(plan[6]), int(plan[1]),
                    *_constants(M, theta, rho), kernels.stream(dev))
 
 
 @functools.lru_cache(maxsize=16)
 def _plan_on(M: int, dev: torch.device) -> torch.Tensor:
-    """:func:`sum_plan` (M) on the card, uploaded once."""
-    return torch.from_numpy(sum_plan(M).copy()).to(dev)
+    """:func:`eval_plan` (M) on the card, uploaded once."""
+    return torch.from_numpy(eval_plan(M).copy()).to(dev)
 
 
 def initial_state(M: int, device):
@@ -291,13 +413,66 @@ def initial_state(M: int, device):
             torch.zeros(M, dtype=torch.float64, device=dev))
 
 
-def _check_cols(cols: torch.Tensor) -> tuple[int, int]:
+def _row_words(M: int) -> int:
+    """int32 words of a packed site column of M alleles: 16-byte rows."""
+    return -(-M // (8 * COL_ALIGN)) * (COL_ALIGN // 4)
+
+
+class SiteColumns(NamedTuple):
+    """N site columns of M 0/1 alleles packed as the kernels read them: bit
+    j of word w of row k is haplotype 32w + j's allele at site k, rows of
+    :func:`_row_words` (M) words (16 bytes each, for the asynchronous
+    copies), the bits past M zero."""
+    words: torch.Tensor     # (N, _row_words(M)) int32
+    M: int
+
+    def alleles(self) -> torch.Tensor:
+        """The (N, M) uint8 columns, unpacked on the words' device."""
+        b = self.words.view(torch.uint8)
+        bit = torch.arange(8, dtype=torch.uint8, device=b.device)
+        return ((b[..., None] >> bit) & 1).reshape(b.shape[0], -1)[:, :self.M]
+
+
+def pack_columns(cols: torch.Tensor) -> SiteColumns:
+    """(N, M) uint8 0/1 site columns as :class:`SiteColumns` on their
+    device. Raises for another dtype or a value above 1."""
     if cols.dim() != 2 or cols.dtype != torch.uint8:
-        raise ValueError("ls_eval: the site columns must be an (N, M) uint8 "
-                         f"tensor, got {cols.dtype} {tuple(cols.shape)}")
+        raise ValueError("the site columns must be an (N, M) uint8 tensor, "
+                         f"got {cols.dtype} {tuple(cols.shape)}")
+    if bool((cols > 1).any()):
+        raise ValueError("the site columns must hold alleles 0 and 1")
     N, M = cols.shape
+    nbytes = 4 * _row_words(M)
+    bits = torch.zeros((N, 8 * nbytes), dtype=torch.int32, device=cols.device)
+    bits[:, :M] = cols
+    weight = 1 << torch.arange(8, dtype=torch.int32, device=cols.device)
+    packed = (bits.view(N, nbytes, 8) * weight).sum(-1).to(torch.uint8)
+    return SiteColumns(packed.view(torch.int32), M)
+
+
+def upload_columns(X: np.ndarray, device=None) -> SiteColumns:
+    """The (M, N) 0/1 haplotypes X as packed site columns on ``device``."""
+    dev = resolve_device(device)
+    M, N = X.shape
+    if X.size and X.max() > 1:
+        raise ValueError("the copy model takes alleles 0 and 1")
+    host = np.zeros((N, 4 * _row_words(M)), np.uint8)
+    host[:, :-(-M // 8)] = np.packbits(X.T, axis=1, bitorder="little")
+    return SiteColumns(torch.from_numpy(host.view(np.int32)).to(dev), M)
+
+
+def _check_cols(cols: SiteColumns) -> tuple[int, int]:
+    if not isinstance(cols, SiteColumns):
+        raise ValueError("ls_eval: the site columns must be SiteColumns "
+                         f"(pack_columns, upload_columns), got {type(cols)}")
+    N, M = cols.words.shape[0], cols.M
     if M < 2:
         raise ValueError(f"ls_eval: the copy model needs M >= 2, got {M}")
+    if (cols.words.dtype != torch.int32
+            or cols.words.shape != (N, _row_words(M))):
+        raise ValueError(f"ls_eval: packed columns of M = {M} are (N, "
+                         f"{_row_words(M)}) int32, got {cols.words.dtype} "
+                         f"{tuple(cols.words.shape)}")
     return N, M
 
 
@@ -310,66 +485,62 @@ def _check_sums(sums, N: int, M: int, dev) -> None:
                          f"float64 tensor on {dev}")
 
 
-def ls_steps(cols: torch.Tensor, theta: float, rho: float,
+def ls_steps(cols: SiteColumns, theta: float, rho: float,
              sums: torch.Tensor | None = None) -> torch.Tensor:
-    """An evaluation site by site: :func:`ls_step` over the rows of
+    """An evaluation site by site: :func:`ls_step` over the sites of
     ``cols`` from :func:`initial_state`. Returns ll (M,) f64; ``sums``, if
     given, takes each site's row sums."""
     N, M = _check_cols(cols)
-    _check_sums(sums, N, M, cols.device)
-    state = initial_state(M, cols.device)
+    dev = cols.words.device
+    _check_sums(sums, N, M, dev)
+    state = initial_state(M, dev)
+    x = cols.alleles() if dev.type == "cpu" else None
     for k in range(N):
-        ls_step(cols[k].contiguous(), *state, M, theta, rho)
+        if x is not None:
+            ls_step_plain(x[k], *state, M, theta, rho)
+        else:
+            ls_step_bits(cols.words[k], *state, M, theta, rho)
         if sums is not None:
             sums[k] = state[1]
     return state[2]
 
 
-def ls_eval_plain(cols: torch.Tensor, theta: float, rho: float,
+def ls_eval_plain(cols: SiteColumns, theta: float, rho: float,
                   sums: torch.Tensor | None = None) -> torch.Tensor:
     """Plain twin of :func:`ls_eval`: the loop of :func:`ls_step_plain` over
     the sites."""
     N, M = _check_cols(cols)
-    _check_sums(sums, N, M, cols.device)
-    state = initial_state(M, cols.device)
+    dev = cols.words.device
+    _check_sums(sums, N, M, dev)
+    state = initial_state(M, dev)
+    x = cols.alleles()
     for k in range(N):
-        ls_step_plain(cols[k], *state, M, theta, rho)
+        ls_step_plain(x[k], *state, M, theta, rho)
         if sums is not None:
             sums[k] = state[1]
     return state[2]
 
 
-def eval_smem(M: int, R: int) -> int:
-    """Shared memory of a ``k4_ls_eval`` block of R rows: two column
-    buffers, then a row, its plan's nodes and its previous row sum in f64
-    for each row."""
-    mcol = -(-M // COL_ALIGN) * COL_ALIGN
-    return 2 * mcol + 8 * R * (M + plan_nodes(M) + 1)
+def eval_smem(M: int) -> int:
+    """Shared memory of a ``k4_ls_eval`` block, one row: its elements in the
+    layout of :func:`eval_plan`, its plan's nodes (an even count) and its
+    row sum (and a pad) in f64, and a ring of RING packed site columns."""
+    p = eval_plan(M)
+    nodes, rowlen = int(p[1]), int(p[7])
+    return 8 * (rowlen + nodes + nodes % 2 + 2) + RING * 4 * _row_words(M)
 
 
-def eval_config(M: int, sms: int = SM_COUNT, smem: int = SMEM_OPTIN):
-    """Launch shape of ``k4_ls_eval`` for M haplotypes: (R, H), R rows of
-    ``left`` resident in each block's shared memory and H warps along each
-    row; None when not even one row fits beside the two column buffers.
-    The plan's nodes take shared memory too, so the widest row that fits
-    depends on the installed numpy's order (:func:`numpy_chunk`): 22,936
-    haplotypes in numpy 2.0's, 22,832 in numpy 2.3's, on the H100.
-
-    R starts from the most rows the shared memory holds and is then cut to
-    the fewest that keep the number of waves over the card's SMs, so the
-    last wave is as full as the others. H gives a row's leaves (groups of
-    8 lanes a leaf, 4 a warp) as many lanes as the block's 32 warps allow,
-    up to EVAL_MAX_SPLIT warps.
-    """
-    per_row = eval_smem(M, 1) - eval_smem(M, 0)
-    r_max = min((smem - eval_smem(M, 0)) // per_row, EVAL_MAX_WARPS)
-    if r_max < 1:
-        return None
-    waves = -(-(-(-M // r_max)) // sms)
-    R = -(-M // (waves * sms))
-    leaves = int(sum_plan(M)[0])
-    H = max(1, min(EVAL_MAX_WARPS // R, EVAL_MAX_SPLIT, -(-leaves // 4)))
-    return R, H
+def eval_config(M: int, smem: int = SMEM_OPTIN):
+    """Warps of a ``k4_ls_eval`` block for M haplotypes: one block a row, two
+    lanes a leaf of :func:`eval_plan`; None when the row does not fit in a
+    block's shared memory or needs more than EVAL_MAX_WARPS warps. An SM
+    holds as many rows as its shared memory and registers take (5 at
+    5,008). The row's layout and the plan's nodes depend on the installed
+    numpy's order (:func:`numpy_chunk`), and so does which rows fit: on the
+    H100 up to 26,664 haplotypes in numpy 2.3's order, and up to 27,146 in
+    numpy 2.0's, except from 26,505 to 26,751."""
+    W = int(eval_plan(M)[6])
+    return W if W <= EVAL_MAX_WARPS and eval_smem(M) <= smem else None
 
 
 def _config_on(M: int, dev: torch.device):
@@ -378,78 +549,52 @@ def _config_on(M: int, dev: torch.device):
     if dev.type != "cuda":
         return eval_config(M)
     props = torch.cuda.get_device_properties(dev)
-    return eval_config(M, props.multi_processor_count,
-                       getattr(props, "shared_memory_per_block_optin",
-                               SMEM_OPTIN))
+    return eval_config(M, getattr(props, "shared_memory_per_block_optin",
+                                  SMEM_OPTIN))
 
 
-def aligned_columns(cols: torch.Tensor) -> torch.Tensor:
-    """``cols`` as an (N, M) view whose rows start on COL_ALIGN bytes, which
-    ``k4_ls_eval``'s asynchronous column copies need; ``cols`` itself when
-    it already is one, else a padded copy."""
-    N, M = cols.shape
-    if (cols.stride(1) == 1 and cols.stride(0) % COL_ALIGN == 0
-            and cols.stride(0) >= M and cols.data_ptr() % COL_ALIGN == 0):
-        return cols
-    Mp = -(-M // COL_ALIGN) * COL_ALIGN
-    out = torch.zeros((N, Mp), dtype=torch.uint8, device=cols.device)
-    out[:, :M] = cols
-    return out[:, :M]
-
-
-def ls_eval(cols: torch.Tensor, theta: float, rho: float,
+def ls_eval(cols: SiteColumns, theta: float, rho: float,
             sums: torch.Tensor | None = None) -> torch.Tensor:
     """A whole evaluation of the copy model in one launch (kernel K4,
     ``k4_ls_eval``): what N calls of :func:`ls_step` compute from
     :func:`initial_state`.
 
-    cols: (N, M) uint8 site columns in natural order. Returns ll (M,) f64,
-    the per-row sums of the log row sums; ``sums``, an (N, M) f64 tensor if
-    given, takes each site's row sums. CPU tensors run the plain twin; CUDA
-    tensors launch the kernel, and raise when a row does not fit in shared
-    memory (:func:`eval_config`).
+    cols: the N packed site columns. Returns ll (M,) f64, the per-row sums
+    of the log row sums; ``sums``, an (N, M) f64 tensor if given, takes
+    each site's row sums. CPU tensors run the plain twin; CUDA tensors
+    launch the kernel, and raise when a row does not fit in shared memory
+    (:func:`eval_config`).
     """
     N, M = _check_cols(cols)
-    if cols.device.type == "cpu":
+    words = cols.words
+    if words.device.type == "cpu":
         return ls_eval_plain(cols, theta, rho, sums)
-    if cols.device.type != "cuda":
-        raise ValueError(f"pbwt_tpu_torch: no kernel for device "
-                         f"{cols.device}")
-    dev = cols.device
+    dev = kernels.typed_cuda_tensors((words, torch.int32))
     _check_sums(sums, N, M, dev)
-    cfg = _config_on(M, dev)
-    if cfg is None:
+    warps = _config_on(M, dev)
+    if warps is None:
         raise ValueError(f"ls_eval: a row of M = {M} does not fit in shared "
                          "memory; use ls_steps")
-    cols = aligned_columns(cols)
+    plan = eval_plan(M)
     ll = torch.empty(M, dtype=torch.float64, device=dev)
-    kernels.launch("k4_ls_eval", dev.index, cols.data_ptr(), cols.stride(0),
-                   N, M, *cfg, _plan_on(M, dev).data_ptr(), plan_nodes(M),
+    kernels.launch("k4_ls_eval", dev.index, words.data_ptr(),
+                   words.stride(0) * 4, N, M, warps,
+                   _plan_on(M, dev).data_ptr(), int(plan[1]), int(plan[7]),
                    1.0 / (M - 1.0), *_constants(M, theta, rho),
                    ll.data_ptr(), 0 if sums is None else sums.data_ptr(),
                    kernels.stream(dev))
     return ll
 
 
-def upload_columns(X: np.ndarray, device=None) -> torch.Tensor:
-    """The (M, N) haplotypes X as (N, M) uint8 site columns on ``device``,
-    rows aligned for :func:`ls_eval`."""
-    dev = resolve_device(device)
-    M, N = X.shape
-    Mp = -(-M // COL_ALIGN) * COL_ALIGN
-    host = np.zeros((N, Mp), np.uint8)
-    host[:, :M] = X.T
-    return torch.from_numpy(host).to(dev)[:, :M]
-
-
-def copy_ll_columns(cols: torch.Tensor, theta: float, rho: float) -> float:
-    """Drop-one log likelihood from resident site columns: one launch of
-    ``k4_ls_eval`` when a row fits in shared memory, else site by site on
-    ``k4_ls_step`` (M above about 22,800, :func:`eval_config`). On the CPU both are the same
-    plain loop. The per-row sums come back to the host and are added by
-    numpy, in the host's order."""
+def copy_ll_columns(cols: SiteColumns, theta: float, rho: float) -> float:
+    """Drop-one log likelihood from resident packed site columns: one
+    launch of ``k4_ls_eval`` when a row fits in shared memory, else site by
+    site on ``k4_ls_step`` (M above 26,664 in numpy 2.3's order,
+    :func:`eval_config`). On
+    the CPU both are the same plain loop. The per-row sums come back to the
+    host and are added by numpy, in the host's order."""
     _, M = _check_cols(cols)
-    resident = _config_on(M, cols.device) is not None
+    resident = _config_on(M, cols.words.device) is not None
     ll = (ls_eval if resident else ls_steps)(cols, theta, rho)
     return float(ll.cpu().numpy().sum())
 
