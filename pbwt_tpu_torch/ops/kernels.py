@@ -47,7 +47,7 @@ _SIGNATURES = {
     "k3_rank_plane": [_I, _P, _P, _I, _I, _P, _P],
     "k3_match_scan": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P, _I, _P, _P],
-    "k4_ls_step": [_I, _P, _P, _P, _P, _I, _P, _I, _I, _D, _D, _D, _D, _P],
+    "k4_ls_step": [_I, _P, _P, _P, _P, _I, _P, _I, _D, _D, _D, _D, _P],
     "k4_ls_eval": [_I, _P, _L, _I, _I, _I, _P, _I, _I, _D, _D, _D, _D, _D, _P,
                    _P, _P],
     "k5_impute_vote": [_I, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P,

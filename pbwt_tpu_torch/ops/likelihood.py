@@ -26,9 +26,10 @@ as bits (:class:`SiteColumns`):
 * :func:`ls_step` (``k4_ls_step``): one site over the matrix in device
   memory, in place; an evaluation is N launches.
 
-Both take a row sum as the kernels' split of numpy's tree (:func:`eval_plan`:
-two lanes a leaf, the lower nodes by shuffles inside a warp, the upper ones
-in shared memory), which :func:`row_sums` evaluates in the same order.
+``k4_ls_eval`` takes a row sum as its split of numpy's tree
+(:func:`eval_plan`: two lanes a leaf, the lower nodes by shuffles inside a
+warp, the upper ones in shared memory), ``k4_ls_step`` and the twins'
+:func:`row_sums` as :func:`sum_plan` gives it.
 :func:`copy_ll_columns` chooses between them by shape alone: the one-launch
 kernel whenever a row fits in shared memory (:func:`eval_config`), else the
 site-by-site one. Both are hand-written kernels; on a CUDA tensor neither
@@ -161,13 +162,9 @@ def plan_nodes(M: int) -> int:
     return int(plan[0] + plan[1])
 
 
-EVAL_HEAD = 8   # leaves, nodes, rounds, upper nodes and heights, root, warps,
-                # row length
-
-
 def eval_plan(M: int, chunk: int | None = None) -> np.ndarray:
-    """The kernels' split of :func:`sum_plan` (M, ``chunk`` as there), as
-    an int32 array.
+    """``k4_ls_eval``'s split of :func:`sum_plan` (M, ``chunk`` as there),
+    as an int32 array.
 
     Lanes 2l and 2l + 1 of a row's warps (warp l // LEAVES) take leaf l,
     4 of its 8 accumulators each. A node whose leaves all lie in one warp
@@ -175,11 +172,11 @@ def eval_plan(M: int, chunk: int | None = None) -> np.ndarray:
     lanes of its leftmost leaf add the values of the lanes of its right
     child's leftmost leaf. The highest such node over each stretch of
     leaves (or a leaf that no such node covers) goes to the row's nodes in
-    shared memory; the
-    upper nodes, whose children lie in different warps, are summed from
-    there a height at a time. Every node is still the sum of its two
-    children, so the row sum is numpy's bit for bit (:func:`row_sums`
-    evaluates this split).
+    shared memory; the upper nodes, whose children lie in different warps,
+    are summed from there a height at a time (by one warp, 64 of them from
+    registers). Every node is still the sum of its two children, so the
+    row sum is numpy's bit for bit (the CPU tests evaluate this split lane
+    by lane against numpy's order).
 
     Layout: [L, L + T, rounds, U, UH, root, W, row length]; the L + 1 leaf
     starts; the W + 1 offsets of each warp's elements in a row as
@@ -240,31 +237,15 @@ def _eval_plan(M: int, chunk: int) -> np.ndarray:
     return out
 
 
-def _split(M: int, chunk: int):
-    """:func:`eval_plan` (M, chunk) unpacked: (L, nodes, root, W, row
-    length, starts, warp offsets, the rounds' source lanes (rounds, L),
-    destinations, upper offsets, upper nodes, lefts, rights)."""
-    p = eval_plan(M, chunk)
-    L, nodes, rounds, U, UH, root, W, rowlen = (int(v)
-                                                for v in p[:EVAL_HEAD])
-    parts, at = [], EVAL_HEAD
-    for n in (L + 1, W + 1, rounds * L, L, UH + 1, U, U, U):
-        parts.append(p[at:at + n].astype(np.int64))
-        at += n
-    parts[2] = parts[2].reshape(rounds, L)
-    return (L, nodes, root, W, rowlen, *parts)
-
-
 @functools.lru_cache(maxsize=16)
 def _plain_plan(M: int, device: torch.device, chunk: int):
-    """The kernels' split (:func:`eval_plan` (M, chunk)) as the twin's
-    gather indices on ``device``: the (L, 16, 8) element of each leaf's
-    accumulators and the (L, 7) of its remainder, M where there is none (a
-    zero column); each shuffle round as (lanes that add, the lane each
-    reads); the lanes written to the nodes and their nodes; the upper
-    nodes a height at a time as (node, left, right) index tensors."""
-    (L, nodes, root, _, _, starts, _, code, dst, uoff, unode, uleft,
-     uright) = _split(M, chunk)
+    """:func:`sum_plan` (M, chunk) as the twin's gather indices on
+    ``device``: the (L, 16, 8) element of each leaf's accumulators and the
+    (L, 7) of its remainder, M where there is none (a zero column), and the
+    inner nodes' heights as (left, right) index tensors."""
+    plan = sum_plan(M, chunk)
+    L, T, heights = (int(v) for v in plan[:3])
+    starts = plan[PLAN_HEAD:PLAN_HEAD + L + 1]
     acc = np.full((L, PAIRWISE_LEAF // 8, 8), M, np.int64)
     rest = np.full((L, 7), M, np.int64)
     for leaf in range(L):
@@ -272,33 +253,25 @@ def _plain_plan(M: int, device: torch.device, chunk: int):
         n8 = n - n % 8 if n >= 8 else 0
         acc[leaf, :n8 // 8] = np.arange(s, s + n8).reshape(-1, 8)
         rest[leaf, :n - n8] = np.arange(s + n8, s + n)
-    lane = np.arange(L)
-    rounds = [(src >= 0, np.where(src >= 0, lane - lane % LEAVES + src, lane))
-              for src in code]
-    top = np.flatnonzero(dst >= 0)
-    levels = [(unode[a:b], uleft[a:b], uright[a:b])
-              for a, b in zip(uoff[:-1], uoff[1:])]
-
-    def t(v):
-        return torch.from_numpy(np.asarray(v)).to(device)
-
-    return (t(acc), t(rest), [(t(a), t(s)) for a, s in rounds], t(top),
-            t(dst[top]), [tuple(t(v) for v in lv) for lv in levels], L,
-            nodes, root)
+    off = plan[PLAN_HEAD + L + 1:PLAN_HEAD + L + 2 + heights]
+    left = plan[PLAN_HEAD + L + 2 + heights:][:T]
+    right = plan[PLAN_HEAD + L + 2 + heights + T:][:T]
+    levels = [tuple(torch.from_numpy(np.asarray(v[a:b], np.int64)).to(device)
+                    for v in (left, right))
+              for a, b in zip(off[:-1], off[1:])]
+    return (torch.from_numpy(acc).to(device), torch.from_numpy(rest).to(device),
+            levels, L, int(plan[3]))
 
 
 def row_sums(a: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
     """Plain twin of the kernels' row sum: (rows, M) f64 -> (rows,) f64,
-    each row summed in numpy's order through the kernels' split of its
-    tree (:func:`eval_plan`, ``chunk`` as :func:`sum_plan`'s), so equal
-    bit for bit to ``a.numpy().sum(axis=1)``. The accumulators of all
-    leaves are summed at once, with zeros after their last element (x + 0
-    is x); then the shuffle rounds, the written nodes and the upper nodes
-    as the kernels take them."""
+    each row summed in numpy's order (:func:`sum_plan`, ``chunk`` as
+    there), so equal bit for bit to ``a.numpy().sum(axis=1)``. The
+    accumulators of all leaves are summed at once, with zeros after their
+    last element (x + 0 is x)."""
     rows, M = a.shape
     chunk = numpy_chunk() if chunk is None else chunk
-    (acc_idx, rest_idx, rounds, top, dst, levels, L, nodes,
-     root) = _plain_plan(M, a.device, chunk)
+    acc_idx, rest_idx, levels, L, root = _plain_plan(M, a.device, chunk)
     padded = torch.cat([a, a.new_zeros(rows, 1)], 1)
     acc = padded[:, acc_idx]                         # (rows, L, 16, 8)
     r = acc[:, :, 0]
@@ -310,13 +283,14 @@ def row_sums(a: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
     rest = padded[:, rest_idx]
     for q in range(rest.shape[2]):
         s = s + rest[:, :, q]
-    for adds, src in rounds:
-        s = torch.where(adds, s + s[:, src], s)
-    out = torch.empty((rows, nodes), dtype=a.dtype, device=a.device)
-    out[:, dst] = s[:, top]
-    for node, left, right in levels:
-        out[:, node] = out[:, left] + out[:, right]
-    return out[:, root]
+    nodes = torch.empty((rows, L + sum(len(lv[0]) for lv in levels)),
+                        dtype=a.dtype, device=a.device)
+    nodes[:, :L] = s
+    at = L
+    for left, right in levels:
+        nodes[:, at:at + len(left)] = nodes[:, left] + nodes[:, right]
+        at += len(left)
+    return nodes[:, root]
 
 
 def _constants(M: int, theta: float, rho: float):
@@ -324,21 +298,19 @@ def _constants(M: int, theta: float, rho: float):
     return 1.0 - rho, rho / (M - 1.0), theta, 1.0 - theta
 
 
-def _check(left, rs, ll, M: int) -> None:
+def _check(x, left, rs, ll, M: int) -> None:
     if M < 2:
         raise ValueError(f"ls_step: the copy model needs M >= 2, got {M}")
-    if left.shape != (M, M) or rs.shape != (M,) or ll.shape != (M,):
-        raise ValueError(f"ls_step: shapes {tuple(left.shape)}, "
-                         f"{tuple(rs.shape)}, {tuple(ll.shape)} do not fit "
-                         f"M = {M}")
+    if (x.shape != (M,) or left.shape != (M, M) or rs.shape != (M,)
+            or ll.shape != (M,)):
+        raise ValueError(f"ls_step: shapes {tuple(x.shape)}, "
+                         f"{tuple(left.shape)}, {tuple(rs.shape)}, "
+                         f"{tuple(ll.shape)} do not fit M = {M}")
 
 
 def ls_step_plain(x, left, rs, ll, M: int, theta: float, rho: float):
     """Plain twin of :func:`ls_step`, in torch f64 on blocks of rows."""
-    _check(left, rs, ll, M)
-    if x.shape != (M,):
-        raise ValueError(f"ls_step: the site column {tuple(x.shape)} does "
-                         f"not fit M = {M}")
+    _check(x, left, rs, ll, M)
     rho1, rho_m, th, th1 = _constants(M, theta, rho)
     fac = torch.tensor([th, th1], dtype=torch.float64, device=left.device)
     step = max(1, PLAIN_BLOCK_ELEMENTS // M)
@@ -356,40 +328,29 @@ def ls_step_plain(x, left, rs, ll, M: int, theta: float, rho: float):
 def ls_step(x, left, rs, ll, M: int, theta: float, rho: float):
     """One site of the copy model, in place (kernel K4, ``k4_ls_step``).
 
-    x: (M,) uint8 site column of 0/1 alleles in natural order; left: (M,
-    M) f64 un-normalised copy matrix of the previous site; rs: (M,) f64 its
-    row sums (ones before the first site), replaced by this site's; ll:
-    (M,) f64 log row sums, accumulated. CPU tensors run the plain twin;
-    CUDA tensors pack the column as bits (:func:`pack_columns`) and launch
-    the kernel.
+    x: (M,) uint8 site column in natural order; left: (M, M) f64
+    un-normalised copy matrix of the previous site; rs: (M,) f64 its row
+    sums (ones before the first site), replaced by this site's; ll: (M,) f64
+    log row sums, accumulated. CPU tensors run the plain twin; CUDA tensors
+    launch the kernel.
     """
     if left.device.type == "cpu":
         return ls_step_plain(x, left, rs, ll, M, theta, rho)
-    ls_step_bits(pack_columns(x[None]).words[0], left, rs, ll, M, theta, rho)
-
-
-def ls_step_bits(col, left, rs, ll, M: int, theta: float, rho: float):
-    """:func:`ls_step` on the card from a packed site column (a row of
-    :attr:`SiteColumns.words`), as an evaluation site by site runs it."""
-    dev = kernels.typed_cuda_tensors((col, torch.int32),
-                                     (left, torch.float64),
+    dev = kernels.typed_cuda_tensors((x, torch.uint8), (left, torch.float64),
                                      (rs, torch.float64),
                                      (ll, torch.float64))
-    _check(left, rs, ll, M)
-    if col.shape != (_row_words(M),):
-        raise ValueError(f"ls_step: a packed column of M = {M} has "
-                         f"{_row_words(M)} words, got {tuple(col.shape)}")
-    plan = eval_plan(M)
-    kernels.launch("k4_ls_step", dev.index, col.data_ptr(), left.data_ptr(),
+    _check(x, left, rs, ll, M)
+    kernels.launch("k4_ls_step", dev.index, x.data_ptr(), left.data_ptr(),
                    rs.data_ptr(), ll.data_ptr(), M,
-                   _plan_on(M, dev).data_ptr(), int(plan[6]), int(plan[1]),
+                   _plan_on(sum_plan, M, dev).data_ptr(), plan_nodes(M),
                    *_constants(M, theta, rho), kernels.stream(dev))
 
 
 @functools.lru_cache(maxsize=16)
-def _plan_on(M: int, dev: torch.device) -> torch.Tensor:
-    """:func:`eval_plan` (M) on the card, uploaded once."""
-    return torch.from_numpy(eval_plan(M).copy()).to(dev)
+def _plan_on(plan, M: int, dev: torch.device) -> torch.Tensor:
+    """``plan`` (M), :func:`sum_plan` or :func:`eval_plan`, on the card,
+    uploaded once."""
+    return torch.from_numpy(plan(M).copy()).to(dev)
 
 
 def initial_state(M: int, device):
@@ -433,23 +394,6 @@ class SiteColumns(NamedTuple):
         return ((b[..., None] >> bit) & 1).reshape(b.shape[0], -1)[:, :self.M]
 
 
-def pack_columns(cols: torch.Tensor) -> SiteColumns:
-    """(N, M) uint8 0/1 site columns as :class:`SiteColumns` on their
-    device. Raises for another dtype or a value above 1."""
-    if cols.dim() != 2 or cols.dtype != torch.uint8:
-        raise ValueError("the site columns must be an (N, M) uint8 tensor, "
-                         f"got {cols.dtype} {tuple(cols.shape)}")
-    if bool((cols > 1).any()):
-        raise ValueError("the site columns must hold alleles 0 and 1")
-    N, M = cols.shape
-    nbytes = 4 * _row_words(M)
-    bits = torch.zeros((N, 8 * nbytes), dtype=torch.int32, device=cols.device)
-    bits[:, :M] = cols
-    weight = 1 << torch.arange(8, dtype=torch.int32, device=cols.device)
-    packed = (bits.view(N, nbytes, 8) * weight).sum(-1).to(torch.uint8)
-    return SiteColumns(packed.view(torch.int32), M)
-
-
 def upload_columns(X: np.ndarray, device=None) -> SiteColumns:
     """The (M, N) 0/1 haplotypes X as packed site columns on ``device``."""
     dev = resolve_device(device)
@@ -464,7 +408,7 @@ def upload_columns(X: np.ndarray, device=None) -> SiteColumns:
 def _check_cols(cols: SiteColumns) -> tuple[int, int]:
     if not isinstance(cols, SiteColumns):
         raise ValueError("ls_eval: the site columns must be SiteColumns "
-                         f"(pack_columns, upload_columns), got {type(cols)}")
+                         f"(upload_columns), got {type(cols)}")
     N, M = cols.words.shape[0], cols.M
     if M < 2:
         raise ValueError(f"ls_eval: the copy model needs M >= 2, got {M}")
@@ -494,12 +438,9 @@ def ls_steps(cols: SiteColumns, theta: float, rho: float,
     dev = cols.words.device
     _check_sums(sums, N, M, dev)
     state = initial_state(M, dev)
-    x = cols.alleles() if dev.type == "cpu" else None
+    x = cols.alleles()
     for k in range(N):
-        if x is not None:
-            ls_step_plain(x[k], *state, M, theta, rho)
-        else:
-            ls_step_bits(cols.words[k], *state, M, theta, rho)
+        ls_step(x[k], *state, M, theta, rho)
         if sums is not None:
             sums[k] = state[1]
     return state[2]
@@ -579,7 +520,8 @@ def ls_eval(cols: SiteColumns, theta: float, rho: float,
     ll = torch.empty(M, dtype=torch.float64, device=dev)
     kernels.launch("k4_ls_eval", dev.index, words.data_ptr(),
                    words.stride(0) * 4, N, M, warps,
-                   _plan_on(M, dev).data_ptr(), int(plan[1]), int(plan[7]),
+                   _plan_on(eval_plan, M, dev).data_ptr(), int(plan[1]),
+                   int(plan[7]),
                    1.0 / (M - 1.0), *_constants(M, theta, rho),
                    ll.data_ptr(), 0 if sums is None else sums.data_ptr(),
                    kernels.stream(dev))
