@@ -268,12 +268,15 @@ def _copy_ll_host(X: np.ndarray, theta: float, rho: float) -> float:
 def copy_ll_evaluator(p: PBWT):
     """(theta, rho) -> drop-one log likelihood of p, on the route that
     ``device_requested()`` picks. The pbwt is decoded here, once, and on the
-    device route the site columns are uploaded here, once."""
-    X = p.haplotypes()
+    device route the site columns are uploaded here, once (the span
+    ``setup.ls_columns``)."""
     if device_requested():
+        from .. import tracing
         from ..ops import likelihood as ls
-        cols = ls.upload_columns(X)
+        with tracing.span("setup.ls_columns"):
+            cols = ls.upload_columns(p.haplotypes())
         return lambda theta, rho: ls.copy_ll_columns(cols, theta, rho)
+    X = p.haplotypes()
     return lambda theta, rho: _copy_ll_host(X, theta, rho)
 
 

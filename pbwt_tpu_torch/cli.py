@@ -21,8 +21,8 @@ HELP = """Program: pbwt (PyTorch/CUDA port)
 Usage: python -m pbwt_tpu_torch [ -<command> [options]* ]+
 Commands:
   -log <file>               log file; '-' for stderr
-  -profile <dir>            trace the rest (torch.profiler) into <dir>; log
-                            each command's wall time
+  -profile <dir>            trace the rest (torch.profiler) and the spans'
+                            totals into <dir>; log each command's wall time
   -check                    do various checks
   -stats                    print stats depending on commands; writes to stdout
   -read <file>              read pbwt file; '-' for stdin
@@ -118,6 +118,7 @@ _NARGS = {"-check": 0, "-stats": 0, "-log": 1, "-profile": 1, "-haps": 1,
           "-llCopyModel": 2, "-readGeneticMap": 1, "-4hapsStats": 0,
           "-paint": 1, "-paintSparse": 1, "-merge": 0}
 TRACE_FILE = "pbwt_torch_trace.json"   # -profile's trace in its directory
+SPANS_FILE = "pbwt_torch_spans.tsv"    # and the spans' and counters' totals
 _VCF_MODES = {"-writeVcf": "w", "-writeVcfGz": "wz", "-writeBcf": "wbu",
               "-writeBcfGz": "wb"}
 
@@ -176,8 +177,10 @@ def _main(argv: list[str] | None) -> int:
         if profile:
             profile["prof"].stop()
     if profile:
+        from . import tracing
         profile["prof"].export_chrome_trace(
             os.path.join(profile["dir"], TRACE_FILE))
+        tracing.write_tsv(os.path.join(profile["dir"], SPANS_FILE))
     return 0
 
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core import native, pack3
 from . import resolve_device
 from .partition import GROUP, ad_trajectory, group_scan
@@ -150,7 +151,8 @@ class BlockBuild:
 
     ``add(cols)`` takes an (n, M) uint8 block; ``finish()`` returns (yz
     bytes, aFend int32[M]), those of :func:`build_pbwt_device` on the whole
-    panel.
+    panel. An ``add`` is the span ``ops.build.add``, its stages its children
+    (:mod:`pbwt_tpu_torch.tracing`).
     """
 
     def __init__(self, M: int, device=None):
@@ -163,13 +165,25 @@ class BlockBuild:
         n = len(cols)
         if n == 0:
             return
-        W = torch.from_numpy(pack_column_words(cols, self.Mp)).to(self.dev)
-        ycols, _, self.a, _ = build_scan_grouped(W, self.a)
-        self.yz.append(encode_columns(ycols[:n].cpu().numpy(), self.M))
+        with tracing.span("ops.build.add"):
+            with tracing.span("ops.build.pack"):
+                words = pack_column_words(cols, self.Mp)
+            with tracing.span("ops.build.upload"):
+                W = torch.from_numpy(words).to(self.dev)
+            with tracing.span("ops.build.scan"):
+                ycols, _, self.a, _ = build_scan_grouped(W, self.a)
+            with tracing.span("ops.build.download"):
+                ycols = ycols[:n].cpu().numpy()
+            with tracing.span("ops.build.encode"):
+                self.yz.append(encode_columns(ycols, self.M))
+        tracing.count("ops.build.sites", n)
+        tracing.count("ops.build.hap_sites", n * self.M)
+        tracing.count("ops.build.yz_bytes", len(self.yz[-1]))
 
     def finish(self) -> tuple[bytes, np.ndarray]:
-        yz, self.yz = b"".join(self.yz), []
-        return yz, self.a[:self.M].cpu().numpy().astype(np.int32)
+        with tracing.span("ops.build.finish"):
+            yz, self.yz = b"".join(self.yz), []
+            return yz, self.a[:self.M].cpu().numpy().astype(np.int32)
 
 
 def build_pbwt_device(X: np.ndarray, device=None, multiple: int = 256):

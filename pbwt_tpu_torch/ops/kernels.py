@@ -12,8 +12,11 @@ would be cut to 32 bits). Each entry point returns ``cudaGetLastError()``
 after its launches, and :func:`launch` raises when that is not 0: a refused
 launch never runs, and a later ``torch.cuda.synchronize()`` would not say so.
 :data:`LAUNCHES` counts, per kernel, the calls that launched it; each
-launch is a ``torch.profiler.record_function`` span of the kernel's name, so
-a trace (``-profile``) names the hand-written kernels. :class:`Graph`
+launch is a span of the entry's name (:mod:`pbwt_tpu_torch.tracing`: a
+``record_function`` while a profiler runs), so a trace (``-profile``) names
+the hand-written kernels. The first load of the library is the span
+``setup.kernels``, and ``kernels.builds`` counts the builds that ran nvcc.
+:class:`Graph`
 captures a function's launches once as a CUDA graph and replays it, each
 replay counting the launches it holds.
 """
@@ -27,6 +30,8 @@ import subprocess
 import threading
 
 import torch
+
+from .. import tracing
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -113,6 +118,7 @@ def build(force: bool = False) -> str:
                                                       srcs))):
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
+    tracing.count("kernels.builds")
     cc, tag = nvcc(), f"{os.getpid()}.tmp"
     objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
             for s in srcs]
@@ -151,26 +157,32 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            for name, argtypes in {**_SIGNATURES, **_AUX_SIGNATURES}.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            got = tuple(lib.pbwt_partition_layout(i) for i in (1, 2, 3))
-            if got != (HEADER_INTS, REC_INTS, MIN_TILE):
-                raise RuntimeError(f"pbwt_tpu_torch: partition scratch layout "
-                                   f"{got} != "
-                                   f"{(HEADER_INTS, REC_INTS, MIN_TILE)}")
-            if lib.k3_plane_layout(1) != PLANE_WORDS:
-                raise RuntimeError(f"pbwt_tpu_torch: rank plane of "
-                                   f"{lib.k3_plane_layout(1)} words a block, "
-                                   f"not {PLANE_WORDS}")
-            if (lib.k5_layout(1), lib.k5_layout(2)) != K5_LAYOUT:
-                raise RuntimeError(f"pbwt_tpu_torch: K5 layout "
-                                   f"{(lib.k5_layout(1), lib.k5_layout(2))}"
-                                   f" != {K5_LAYOUT}")
-            _lib = lib
+            with tracing.span("setup.kernels"):
+                _lib = _load()
     return _lib
+
+
+def _load() -> ctypes.CDLL:
+    """The library built if needed, loaded, its entries typed and its
+    layouts checked."""
+    lib = ctypes.CDLL(build())
+    for name, argtypes in {**_SIGNATURES, **_AUX_SIGNATURES}.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    got = tuple(lib.pbwt_partition_layout(i) for i in (1, 2, 3))
+    if got != (HEADER_INTS, REC_INTS, MIN_TILE):
+        raise RuntimeError(f"pbwt_tpu_torch: partition scratch layout "
+                           f"{got} != {(HEADER_INTS, REC_INTS, MIN_TILE)}")
+    if lib.k3_plane_layout(1) != PLANE_WORDS:
+        raise RuntimeError(f"pbwt_tpu_torch: rank plane of "
+                           f"{lib.k3_plane_layout(1)} words a block, "
+                           f"not {PLANE_WORDS}")
+    if (lib.k5_layout(1), lib.k5_layout(2)) != K5_LAYOUT:
+        raise RuntimeError(f"pbwt_tpu_torch: K5 layout "
+                           f"{(lib.k5_layout(1), lib.k5_layout(2))}"
+                           f" != {K5_LAYOUT}")
+    return lib
 
 
 def stream(device: torch.device) -> int:
@@ -186,7 +198,7 @@ def launch(name: str, *args) -> None:
         raise TypeError(f"pbwt_tpu_torch: {name} takes "
                         f"{len(_SIGNATURES[name])} arguments, not {len(args)}")
     LAUNCHES[_KERNEL_OF.get(name, name)] += 1
-    with torch.profiler.record_function(name):
+    with tracing.span(name):
         err = fn(*args)
     if err != 0:
         raise RuntimeError(f"pbwt_tpu_torch: {name} failed with cudaError_t "
@@ -199,7 +211,7 @@ class Graph:
     graph, to be replayed with no host work but the replay. Run fn once
     directly before (a warm-up: NCCL makes its communicator at its first
     collective, and nothing is allocated while capturing). The capture
-    counts no launch; a replay is one ``record_function`` span of ``name``
+    counts no launch; a replay is one span of ``name`` (:mod:`..tracing`)
     and adds to :data:`LAUNCHES` the launches fn made while captured. A
     capture that fails raises with torch's error."""
 
@@ -218,7 +230,7 @@ class Graph:
             LAUNCHES.update(before)
 
     def replay(self) -> None:
-        with torch.profiler.record_function(self.name):
+        with tracing.span(self.name):
             self.graph.replay()
         REPLAYS[self.name] = REPLAYS.get(self.name, 0) + 1
         for k, n in self.launches.items():

@@ -49,6 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from . import kernels, resolve_device
 
 SMEM_OPTIN = 232_448    # dynamic shared memory a block may opt in to (sm_90)
@@ -535,10 +536,17 @@ def copy_ll_columns(cols: SiteColumns, theta: float, rho: float) -> float:
     :func:`eval_config`). On
     the CPU both are the same plain loop. The per-row sums come back to the
     host and are added by numpy, in the host's order."""
-    _, M = _check_cols(cols)
-    resident = _config_on(M, cols.words.device) is not None
-    ll = (ls_eval if resident else ls_steps)(cols, theta, rho)
-    return float(ll.cpu().numpy().sum())
+    with tracing.span("ops.ls.eval"):
+        _, M = _check_cols(cols)
+        resident = _config_on(M, cols.words.device) is not None
+        with tracing.span("ops.ls.launch"):
+            ll = (ls_eval if resident else ls_steps)(cols, theta, rho)
+        with tracing.span("ops.ls.download"):
+            ll = ll.cpu().numpy()
+        with tracing.span("ops.ls.sum"):
+            value = float(ll.sum())
+    tracing.count("ops.ls.evals")
+    return value
 
 
 def copy_ll_device(X: np.ndarray, theta: float, rho: float,

@@ -28,6 +28,7 @@ import os
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core import native
 from . import kernels, resolve_device
 from .build import pad_to
@@ -339,47 +340,55 @@ class DeviceMatcher:
     (a, d), the rank plane, the query scan from the carried (e, f, g), the
     expansion of that segment's records, all in one set of tables sized for
     a segment and made at the first call. The rows are the same, in the
-    same order."""
+    same order. Construction is the span ``setup.matcher`` and a call of
+    :meth:`match` the span ``ops.match``, their stages their children
+    (:mod:`pbwt_tpu_torch.tracing`)."""
 
     def __init__(self, Xp: np.ndarray, device=None):
-        M, N = Xp.shape
-        self._shape_init(M, N, device)
-        xp_pad = np.zeros((self.Mp, 4 * self.Ng), np.uint8)
-        bits = np.packbits(np.ascontiguousarray(Xp, np.uint8), axis=1)
-        xp_pad[:M, :bits.shape[1]] = bits
-        xp_pad[M:] = xp_pad[0]
-        self._finish_init(torch.from_numpy(xp_pad).to(self.device))
+        with tracing.span("setup.matcher"):
+            M, N = Xp.shape
+            self._shape_init(M, N, device)
+            with tracing.span("setup.matcher.pack"):
+                xp_pad = np.zeros((self.Mp, 4 * self.Ng), np.uint8)
+                bits = np.packbits(np.ascontiguousarray(Xp, np.uint8), axis=1)
+                xp_pad[:M, :bits.shape[1]] = bits
+                xp_pad[M:] = xp_pad[0]
+            with tracing.span("setup.matcher.upload"):
+                xp_dev = torch.from_numpy(xp_pad).to(self.device)
+            self._finish_init(xp_dev)
 
     @classmethod
     def from_pbwt(cls, p, device=None, chunk_sites: int = 512):
         """Build from a packed PBWT, decoding the pack3 stream a chunk of
         sites at a time (O(M * chunk) host bytes) instead of materialising
         the (M, N) haplotype matrix."""
+        if native.get_lib() is None:          # no native runtime: dense
+            return cls(p.haplotypes(), device=device)
         self = cls.__new__(cls)
-        M, N = p.M, p.N
-        self._shape_init(M, N, device)
-        a = np.ascontiguousarray(
-            p.aFstart if p.aFstart is not None
-            else np.arange(M, dtype=np.int32), np.int32)
-        chunk_sites = max(8 * -(-chunk_sites // 8), 8)    # whole bytes
-        pos = 0
-        parts = []
-        for k0 in range(0, N, chunk_sites):
-            nc = min(chunk_sites, N - k0)
-            out = native.natural_cols(p.yz, nc, M, a, start=pos,
-                                      with_pos=True)
-            if out is None:                   # no native runtime: dense
-                return cls(p.haplotypes(), device=device)
-            Xc, a, _, pos = out
-            bits = np.packbits(native.transpose_u8(Xc), axis=1)
-            pad = np.empty((self.Mp, bits.shape[1]), np.uint8)
-            pad[:M] = bits
-            pad[M:] = bits[0]
-            parts.append(torch.from_numpy(pad).to(self.device))
-        nb_have = sum(x.shape[1] for x in parts)
-        parts.append(torch.zeros((self.Mp, 4 * self.Ng - nb_have),
-                                 dtype=torch.uint8, device=self.device))
-        self._finish_init(torch.cat(parts, 1))
+        with tracing.span("setup.matcher"):
+            M, N = p.M, p.N
+            self._shape_init(M, N, device)
+            a = np.ascontiguousarray(
+                p.aFstart if p.aFstart is not None
+                else np.arange(M, dtype=np.int32), np.int32)
+            chunk_sites = max(8 * -(-chunk_sites // 8), 8)    # whole bytes
+            pos = 0
+            parts = []
+            for k0 in range(0, N, chunk_sites):
+                nc = min(chunk_sites, N - k0)
+                with tracing.span("setup.matcher.pack"):
+                    Xc, a, _, pos = native.natural_cols(
+                        p.yz, nc, M, a, start=pos, with_pos=True)
+                    bits = np.packbits(native.transpose_u8(Xc), axis=1)
+                    pad = np.empty((self.Mp, bits.shape[1]), np.uint8)
+                    pad[:M] = bits
+                    pad[M:] = bits[0]
+                with tracing.span("setup.matcher.upload"):
+                    parts.append(torch.from_numpy(pad).to(self.device))
+            nb_have = sum(x.shape[1] for x in parts)
+            parts.append(torch.zeros((self.Mp, 4 * self.Ng - nb_have),
+                                     dtype=torch.uint8, device=self.device))
+            self._finish_init(torch.cat(parts, 1))
         return self
 
     def _shape_init(self, M: int, N: int, device) -> None:
@@ -400,17 +409,19 @@ class DeviceMatcher:
         """Row words and group words from the (Mp, 4*Ng) packbits rows on
         the device; where one segment holds the panel, its trajectory and
         rank plane in place of the group words."""
-        self.xp_words = xp_pad.view(torch.int32)              # (Mp, Ng)
-        W = _BITREV.to(self.device)[xp_pad.long()].view(torch.int32) \
-            .t().contiguous()                                 # (Ng, Mp)
-        self._tables = None
-        if self.nseg == 1:
-            self.W = None
-            self.A, self.D, U, self.C = panel_trajectory(W, *self._start_ad())
-            self.plane = rank_plane(U, self.C)
-        else:
-            self.W = W
-            self.A = self.D = self.C = self.plane = None
+        with tracing.span("setup.matcher.tables"):
+            self.xp_words = xp_pad.view(torch.int32)          # (Mp, Ng)
+            W = _BITREV.to(self.device)[xp_pad.long()].view(torch.int32) \
+                .t().contiguous()                             # (Ng, Mp)
+            self._tables = None
+            if self.nseg == 1:
+                self.W = None
+                self.A, self.D, U, self.C = panel_trajectory(
+                    W, *self._start_ad())
+                self.plane = rank_plane(U, self.C)
+            else:
+                self.W = W
+                self.A = self.D = self.C = self.plane = None
 
     def _start_ad(self):
         a0 = torch.arange(self.Mp, dtype=torch.int32, device=self.device)
@@ -451,17 +462,24 @@ class DeviceMatcher:
         out = []
         for seg in range(self.nseg):
             first = seg * self.gseg * GROUP
+            tracing.count("ops.match.segments")
             if self.A is None:
-                A, D, C, plane = self._segment(seg, a, d)
-                a, d = A[-1].clone(), D[-1].clone()
-            e, f, g, rec, nrec = match_scan_indexed(
-                plane, D, A, C, xq_words, self.xp_words, e, f, g, cap, first)
-            nrec = int(nrec)
+                with tracing.span("ops.match.tables"):
+                    A, D, C, plane = self._segment(seg, a, d)
+                    a, d = A[-1].clone(), D[-1].clone()
+            with tracing.span("ops.match.scan"):
+                e, f, g, rec, nrec = match_scan_indexed(
+                    plane, D, A, C, xq_words, self.xp_words, e, f, g, cap,
+                    first)
+                nrec = int(nrec)
+            tracing.count("ops.match.records", nrec)
             if nrec > cap:
                 return None, nrec
-            out.append(expand_rows(A, sort_records(rec, nrec, Q), e, f, g,
-                                   self.N, first,
-                                   flush=seg == self.nseg - 1))
+            with tracing.span("ops.match.sort"):
+                rec = sort_records(rec, nrec, Q)
+            with tracing.span("ops.match.expand"):
+                out.append(expand_rows(A, rec, e, f, g, self.N, first,
+                                       flush=seg == self.nseg - 1))
         return (out[0] if len(out) == 1 else torch.cat(out)), 0
 
     def match(self, Xq: np.ndarray) -> np.ndarray:
@@ -471,17 +489,28 @@ class DeviceMatcher:
         if Xq.shape[1] != self.N:
             raise ValueError(f"query length {Xq.shape[1]} != panel length "
                              f"{self.N}")
-        xq_words = torch.from_numpy(pack_row_words(Xq, self.Ng)) \
-            .to(self.device)
-        cap = self._caps.get(Q, pow2_at_least(max(REC_CAP, 128 * Q)))
-        while True:
-            rows, nrec = self._match_rows(xq_words, cap)
-            if rows is not None:
-                break
-            cap = pow2_at_least(nrec)    # overflow: run again, larger,
-                                         # from the first segment
-        self._caps[Q] = cap
-        return rows[rows[:, 1] < self.M].cpu().numpy()
+        with tracing.span("ops.match"):
+            with tracing.span("ops.match.pack"):
+                words = pack_row_words(Xq, self.Ng)
+            with tracing.span("ops.match.upload"):
+                xq_words = torch.from_numpy(words).to(self.device)
+            cap = self._caps.get(Q, pow2_at_least(max(REC_CAP, 128 * Q)))
+            while True:
+                rows, nrec = self._match_rows(xq_words, cap)
+                if rows is not None:
+                    break
+                tracing.count("ops.match.cap_reruns")
+                cap = pow2_at_least(nrec)    # overflow: run again, larger,
+                                             # from the first segment
+            self._caps[Q] = cap
+            with tracing.span("ops.match.filter"):
+                rows = rows[rows[:, 1] < self.M]
+            with tracing.span("ops.match.download"):
+                rows = rows.cpu().numpy()
+        tracing.count("ops.match.queries", Q)
+        tracing.count("ops.match.rows", len(rows))
+        tracing.count("ops.match.download_bytes", rows.nbytes)
+        return rows
 
 
 def match_queries_device(Xp: np.ndarray, Xq: np.ndarray, device=None

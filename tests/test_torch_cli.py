@@ -120,9 +120,9 @@ def test_cli_match_equals_host(files, cmd, budget):
 
 def test_cli_profile_keeps_stdout_and_writes_a_trace(files, tmp_path):
     """-profile <dir>: stdout byte-identical to the run without it, a wall
-    line a command in the log (pbwt_tpu/cli.py:556-559's shape), and a
-    torch.profiler trace in dir; a trace that cannot be written fails the
-    run."""
+    line a command in the log (pbwt_tpu/cli.py:556-559's shape), a
+    torch.profiler trace in dir and the totals of the port's spans and
+    counters beside it; a trace that cannot be written fails the run."""
     p, q = files
     env = {"PBWT_TORCH_DEVICE": "cpu", "CUDA_VISIBLE_DEVICES": "",
            "OMP_NUM_THREADS": "1"}
@@ -137,7 +137,19 @@ def test_cli_profile_keeps_stdout_and_writes_a_trace(files, tmp_path):
                        prof.stderr.decode(), re.MULTILINE)
     assert walls == ["-profile", "-read", "-matchDynamic"]
     with open(out / "pbwt_torch_trace.json") as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "ops.match" for e in events)
+    lines = (out / "pbwt_torch_spans.tsv").read_text().splitlines()
+    assert lines[0] == "kind\tname\tcalls\tseconds\tself_seconds"
+    spans = {f[1]: f[2:] for f in map(str.split, lines[1:]) if f[0] == "span"}
+    kept = {f[1]: f[2] for f in map(str.split, lines[1:]) if f[0] == "counter"}
+    calls, secs, own = spans["ops.match"]
+    assert calls == "1" and float(secs) >= float(own) > 0
+    assert {"setup.matcher", "ops.match.scan",
+            "ops.match.download"} <= set(spans)
+    assert kept["ops.match.queries"] == "12"
+    assert int(kept["ops.match.rows"]) == sum(
+        ln.startswith(b"MATCH\t") for ln in plain.stdout.splitlines())
     (tmp_path / "file").write_text("")
     bad = _run([sys.executable, "-c", RUN_PORT, "-profile",
                 str(tmp_path / "file"), *args], env)
