@@ -53,6 +53,9 @@
 // reads, so a fault is an exception, not a hang. Loads of planes that other
 // blocks wrote go to L2 (__ldcg). Row offsets are int (n < 2^31 - 4096);
 // offsets into the tables are size_t.
+//
+// k1_pack_columns packs a block's site columns into K1's group words on the
+// card; see its note below.
 
 #include <cuda_runtime.h>
 
@@ -537,6 +540,87 @@ int dispatch(Params& p, int items, int max_blocks, cudaStream_t st) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// k1_pack_columns: a block of natural-order site columns into K1's group words.
+//
+// It replaces the host pass of pbwt_tpu/ops/build.py:142 (pack_group_words),
+// which no TPU kernel did: there, and in the port's BlockBuild before this
+// kernel (ops/build.py:pack_column_words, numpy), the host packed a block and
+// the words crossed to the device. Here the block crosses as its (n, M) bytes
+// and is packed where K1 reads it. Site 32t+s of haplotype i becomes bit s of
+// word [t][i]; a byte counts as 1 when it is not 0, as np.packbits counts it;
+// rows M..Mp-1, and sites from n to the end of the last group, are ones.
+//
+// Bound on the H100: bytes. It reads the n*M bytes once and writes 4*Mp bytes
+// a group (268 MB and 33.5 MB at 4,128 x 64,940: 0.090 ms at 3.35 TB/s) and
+// does about 1.3 integer operations a hap-site (0.01 ms). So the design keeps
+// every load coalesced and many in flight: a thread makes the words of 4
+// neighbouring haplotypes of one group, reading its 32 sites as 4-byte loads
+// (a warp's loads of one site are one 128-byte line), all 32 issued before one
+// is used. The bytes are read once, so they are loaded evict-first (__ldcs) and
+// the words, which K1 reads next, stay in the 50 MB L2. Each load's 4 bytes
+// become 0x80 or 0 with an and, an add and an or; 8 sites gather in a register
+// (byte j holds haplotype j's 8 bits), and eight byte permutes transpose the
+// 4 x 4 bytes of the four registers into the four words, stored as one int4.
+// M not a multiple of 4 (or a misaligned block) takes byte loads instead.
+
+constexpr int PACK_THREADS = 256;
+constexpr int PACK_GRID_Y = 65535;  // groups beyond it are looped over
+
+// 0x80 in each byte of w that is not 0, and 0 in each byte that is
+__device__ __forceinline__ unsigned nonzero_bytes(unsigned w) {
+  return (((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w) & 0x80808080u;
+}
+
+// Bytes i0..i0+3 of a column, byte j of the result haplotype i0+j; 0xFF past m.
+// VEC: m and the block's address are multiples of 4, so one load serves.
+template <bool VEC>
+__device__ __forceinline__ unsigned load_quad(const unsigned char* col, int i0, int m) {
+  if constexpr (VEC) {
+    return i0 < m ? __ldcs(reinterpret_cast<const unsigned*>(col + i0)) : 0xFFFFFFFFu;
+  } else {
+    unsigned v = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v |= (i0 + j < m ? (unsigned)__ldcs(col + i0 + j) : 0xFFu) << (8 * j);
+    return v;
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(PACK_THREADS)
+    pack_columns(const unsigned char* __restrict__ cols, int n, int m, int* __restrict__ words,
+                 int mp, int ngroups) {
+  const int i0 = 4 * (blockIdx.x * PACK_THREADS + threadIdx.x);
+  if (i0 >= mp) return;
+  for (int t = blockIdx.y; t < ngroups; t += gridDim.y) {
+    const int sites = min(32, n - 32 * t);
+    const unsigned char* col = cols + (size_t)32 * t * m;
+    unsigned v[32];
+#pragma unroll
+    for (int s = 0; s < 32; ++s)
+      v[s] = s < sites ? load_quad<VEC>(col + (size_t)s * m, i0, m) : 0xFFFFFFFFu;
+    // acc[q]'s byte j: haplotype i0+j at sites 8q..8q+7, site 8q+b at bit b
+    unsigned acc[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int s = 0; s < 32; ++s) acc[s >> 3] = (acc[s >> 3] >> 1) | nonzero_bytes(v[s]);
+    const unsigned lo0 = __byte_perm(acc[0], acc[1], 0x5140);
+    const unsigned lo1 = __byte_perm(acc[0], acc[1], 0x7362);
+    const unsigned hi0 = __byte_perm(acc[2], acc[3], 0x5140);
+    const unsigned hi1 = __byte_perm(acc[2], acc[3], 0x7362);
+    const int w[4] = {(int)__byte_perm(lo0, hi0, 0x5410), (int)__byte_perm(lo0, hi0, 0x7632),
+                      (int)__byte_perm(lo1, hi1, 0x5410), (int)__byte_perm(lo1, hi1, 0x7632)};
+    int* dst = words + (size_t)t * mp + i0;
+    if ((mp & 3) == 0) {
+      *reinterpret_cast<int4*>(dst) = make_int4(w[0], w[1], w[2], w[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (i0 + j < mp) dst[j] = w[j];
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -584,6 +668,24 @@ int k1_group_partition(int device, const int* w_nat, long long wn_stride, const 
   p.counts = counts;
   p.scratch = scratch;
   return dispatch<false>(p, items, max_blocks, (cudaStream_t)stream);
+}
+
+// The group words of n natural-order site columns of m bytes each (cols, row
+// after row): words holds ceil(n/32) rows of mp >= m ints; see pack_columns.
+int k1_pack_columns(int device, const unsigned char* cols, int n, int m, int* words, int mp,
+                    void* stream) {
+  if (n < 0 || m < 0 || mp < m) return (int)cudaErrorInvalidValue;
+  if (n == 0 || mp == 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int ngroups = (n + 31) / 32;
+  const int quads = (mp + 3) / 4;
+  const dim3 grid((quads + PACK_THREADS - 1) / PACK_THREADS,
+                  ngroups < PACK_GRID_Y ? ngroups : PACK_GRID_Y);
+  const bool vec = m % 4 == 0 && reinterpret_cast<uintptr_t>(cols) % 4 == 0;
+  auto kernel = vec ? pack_columns<true> : pack_columns<false>;
+  kernel<<<grid, PACK_THREADS, 0, (cudaStream_t)stream>>>(cols, n, m, words, mp, ngroups);
+  return (int)cudaGetLastError();
 }
 
 // K2 over nsites chained sites in one launch: site r is bit (s0+r)%32 of word

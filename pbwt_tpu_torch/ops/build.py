@@ -20,7 +20,7 @@ import torch
 
 from .. import tracing
 from ..core import native, pack3
-from . import resolve_device
+from . import kernels, resolve_device
 from .partition import GROUP, ad_trajectory, group_scan
 
 DIVERGENCE_BYTES = 2 << 30     # trajectory tables of one chunk of the
@@ -66,6 +66,35 @@ def pack_column_words(cols: np.ndarray, Mp: int) -> np.ndarray:
         tail[:n % GROUP] = cols[full * GROUP:]
         b = np.packbits(tail, axis=0, bitorder="little")
         W[full, :M] = np.ascontiguousarray(b.T).view(np.int32)[:, 0]
+    return W
+
+
+def pack_columns_plain(cols: torch.Tensor, Mp: int) -> torch.Tensor:
+    """Plain twin of :func:`pack_columns`."""
+    n, M = cols.shape
+    bits = torch.ones((-(-n // GROUP) * GROUP, Mp), dtype=torch.int64,
+                      device=cols.device)
+    bits[:n, :M] = cols != 0
+    shifts = torch.arange(GROUP, dtype=torch.int64, device=cols.device)
+    v = (bits.view(-1, GROUP, Mp) << shifts[:, None]).sum(1)
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def pack_columns(cols: torch.Tensor, Mp: int) -> torch.Tensor:
+    """(n, M) uint8 natural-order columns -> (ceil(n/32), Mp) int32 group
+    words, the words of :func:`pack_column_words` (a byte counts as 1 when
+    it is not 0): kernel ``k1_pack_columns`` on a CUDA tensor, the plain
+    twin on a CPU one."""
+    if cols.device.type == "cpu":
+        return pack_columns_plain(cols, Mp)
+    dev = kernels.typed_cuda_tensors((cols, torch.uint8))
+    n, M = cols.shape
+    if Mp < M:
+        raise ValueError(f"pack_columns: {M} columns do not fit {Mp} rows")
+    W = torch.empty((-(-n // GROUP), Mp), dtype=torch.int32, device=dev)
+    if W.numel():
+        kernels.launch("k1_pack_columns", dev.index, cols.data_ptr(), n, M,
+                       W.data_ptr(), Mp, kernels.stream(dev))
     return W
 
 
@@ -145,14 +174,17 @@ def encode_columns(ycols: np.ndarray, M: int) -> bytes:
 class BlockBuild:
     """Construction of a stream of natural-order columns on ``device`` in
     blocks of whole 32-site groups (the last block may end inside a group):
-    K1 over a block, the prefix array carried on the card from block to
-    block, each block's sorted columns pack3-encoded as they come back. The
-    host holds one block's columns and the encoded bytes, never the panel.
+    a block's bytes uploaded as they are and packed into group words there
+    (:func:`pack_columns`), K1 over the words, the prefix array carried on
+    the card from block to block, each block's sorted columns pack3-encoded
+    as they come back. The host holds one block's columns and the encoded
+    bytes, never the panel.
 
     ``add(cols)`` takes an (n, M) uint8 block; ``finish()`` returns (yz
     bytes, aFend int32[M]), those of :func:`build_pbwt_device` on the whole
     panel. An ``add`` is the span ``ops.build.add``, its stages its children
-    (:mod:`pbwt_tpu_torch.tracing`).
+    (:mod:`pbwt_tpu_torch.tracing`); ``ops.build.card_packs`` counts the
+    blocks packed by the kernel.
     """
 
     def __init__(self, M: int, device=None):
@@ -166,10 +198,13 @@ class BlockBuild:
         if n == 0:
             return
         with tracing.span("ops.build.add"):
-            with tracing.span("ops.build.pack"):
-                words = pack_column_words(cols, self.Mp)
             with tracing.span("ops.build.upload"):
-                W = torch.from_numpy(words).to(self.dev)
+                cols = torch.from_numpy(np.ascontiguousarray(cols, np.uint8))
+                cols = cols.to(self.dev)
+            with tracing.span("ops.build.pack"):
+                W = pack_columns(cols, self.Mp)
+            if W.is_cuda:
+                tracing.count("ops.build.card_packs")
             with tracing.span("ops.build.scan"):
                 ycols, _, self.a, _ = build_scan_grouped(W, self.a)
             with tracing.span("ops.build.download"):

@@ -169,3 +169,42 @@ def test_build_takes_the_multi_group_wrapper(monkeypatch):
     yz, a_end, counts = build.build_pbwt_device(X, device="cpu")
     assert calls == [(3, 256)]
     _check_host(X, yz, a_end, counts)
+
+
+# n a multiple of 32 and not; M a multiple of 256, of 4 alone and of neither
+# (70 also at Mp = M, no pad rows and a width that is not a multiple of 4)
+@pytest.mark.parametrize("n", [64, 32, 100, 7])
+@pytest.mark.parametrize("M,Mp", [(256, 256), (68, 256), (70, 256), (70, 70),
+                                  (512, 768)])
+def test_pack_columns_twin_matches_numpy(n, M, Mp):
+    """The plain twin of k1_pack_columns gives pack_column_words' words,
+    all-ones pad rows and pad sites included, on bytes other than 0 and 1
+    (a byte counts as 1 when it is not 0)."""
+    rng = np.random.RandomState(n * M + Mp)
+    cols = (rng.randint(0, 2, (n, M)) * rng.randint(1, 256, (n, M))) \
+        .astype(np.uint8)
+    cols[:, :3] = [0, 1, 255]
+    got = build.pack_columns(torch.from_numpy(cols), Mp)
+    assert got.dtype == torch.int32 and got.shape == (-(-n // 32), Mp)
+    assert np.array_equal(got.numpy(), build.pack_column_words(cols, Mp))
+    assert np.array_equal(got.numpy(),
+                          build.pack_column_words(cols != 0, Mp))
+
+
+@pytest.mark.parametrize("M,sizes", [(70, (64, 32, 37)), (256, (96, 4)),
+                                     (68, (32, 32, 32))])
+@pytest.mark.parametrize("one", [1, 9])
+def test_block_build_matches_build_pbwt_device(M, sizes, one):
+    """BlockBuild on the CPU (the packing's plain twin) over blocks of whole
+    groups and a last block that ends inside one gives build_pbwt_device's
+    yz and aFend on the whole panel, with 1 written as another non-zero
+    byte too."""
+    X = rand_haps(M + sum(sizes), M, sum(sizes))
+    bb = build.BlockBuild(M, device="cpu")
+    s = 0
+    for n in sizes:
+        bb.add(np.ascontiguousarray(X[:, s:s + n].T) * np.uint8(one))
+        s += n
+    yz, a_end = bb.finish()
+    want_yz, want_a, _ = build.build_pbwt_device(X, device="cpu")
+    assert yz == want_yz and np.array_equal(a_end, want_a)

@@ -248,6 +248,9 @@ def test_a_small_cap_is_counted_as_a_rerun():
 
 
 def test_block_build_spans_and_counters():
+    """A block's stages are children of its ``ops.build.add``, and the
+    counters sum the blocks. ``ops.build.card_packs`` is counted only on the
+    card, where k1_pack_columns launches: here, on the CPU, it is absent."""
     M, N = 70, 100
     X = _panel(9, M, N)
     bb = build.BlockBuild(M, device="cpu")
