@@ -2,15 +2,16 @@
 maximal-match voting, missing-data imputation, genotype comparison and
 the corruption and copy utilities (pbwtImpute.c).
 
-Counterpart of ``pbwt_tpu/algos/impute.py``. For ``-referenceImpute`` and
-``-imputeMissing`` (``reference_impute3``, ``reference_impute``,
-``impute_missing``) the matches are collected on
-the host (the C sweep or, for -imputeMissing, the C within-panel scan; the
-callback matchers without the C runtime); the votes are taken by the
-streaming C pass on the host, by kernel K5 on the device engine when
-:func:`pbwt_tpu_torch.ops.device_requested` says so (not for
--imputeMissing, whose pass is host C in the reference too), or by numpy
-without the C runtime. All three give the same bytes: a vote's weights are
+Counterpart of ``pbwt_tpu/algos/impute.py``. ``-referenceImpute``
+(``reference_impute3``, ``reference_impute``) on the device engine, when
+:func:`pbwt_tpu_torch.ops.device_requested` says so, runs through a
+:class:`ReferenceImputer`: the reference standing on the device, the
+targets' matches from its frame's ``DeviceMatcher`` and the votes from
+kernel K5. On the host the matches come from the C sweep (for
+``-imputeMissing``, ``impute_missing``, the C within-panel scan; the
+callback matchers without the C runtime) and the votes from the streaming
+C pass, or numpy without the C runtime. All give the same bytes: the match
+sets are equal, and a vote's weights are
 integers, so its f64 sums are exact in any order. ``-genotypeCompare``,
 ``-corruptSites``, ``-corruptSamples`` and ``-copySamples`` run on the
 host C runtime, as in the JAX package; the last three draw from its
@@ -248,23 +249,185 @@ def _emit(x_all, dos_all, a):
                               np.ascontiguousarray(dos_all.T), a)
 
 
-def _set_impute_info(ref_sites, psums, xsums, pxsums, nvote) -> None:
+def _impute_info(psums, xsums, pxsums, nvote) -> np.ndarray:
+    """Each reference site's info score (pbwtImpute.c:1250-1259), NaN where
+    no target voted: the score stays what the site held."""
     with np.errstate(invalid="ignore", divide="ignore"):
-        psn = psums / nvote
-        xsn = xsums / nvote
-        pxn = pxsums / nvote
-    for k_ref in range(len(ref_sites)):
-        if nvote[k_ref]:
-            var_prod = (psn[k_ref] * (1 - psn[k_ref])
-                        * xsn[k_ref] * (1 - xsn[k_ref]))
-            ref_sites[k_ref].imputeInfo = (
-                (pxn[k_ref] - psn[k_ref] * psn[k_ref])
-                / math.sqrt(var_prod) if var_prod else 1.0)
+        psn, xsn, pxn = psums / nvote, xsums / nvote, pxsums / nvote
+        var_prod = psn * (1 - psn) * xsn * (1 - xsn)
+        info = np.where(var_prod != 0, (pxn - psn * psn) / np.sqrt(var_prod),
+                        1.0)
+    return np.where(nvote > 0, info, np.nan)
+
+
+def _set_impute_info(ref_sites, psums, xsums, pxsums, nvote) -> None:
+    info = _impute_info(psums, xsums, pxsums, nvote)
+    for k_ref in np.flatnonzero(nvote).tolist():
+        ref_sites[k_ref].imputeInfo = float(info[k_ref])
+
+
+def _emit_pbwt(p_new: PBWT, x_all, dos_all) -> None:
+    """The output stage: p_new's pack3 alleles, dosages and final prefix
+    array from the (T, Nref) results, in one C pass (gather + pack3 + dosage
+    RLE + prefix advance per site), or a site at a time without the C
+    runtime."""
+    T, Nref = x_all.shape
+    u_new = engine.WriteCursor(T)
+    if native.get_lib() is not None:
+        p_new.yz, p_new.zDosage, p_new.dosageOffset, p_new.aFend = _emit(
+            x_all, dos_all, u_new.a)
+        return
+    zdosage = bytearray()
+    dosage_offsets: list[int] = []
+    for k_ref in range(Nref):
+        y_new = x_all[u_new.a, k_ref]
+        dosage_store(p_new, dos_all[u_new.a, k_ref], k_ref, zdosage,
+                     dosage_offsets)
+        u_new.write_forwards(y_new)
+    p_new.set_from_write_cursor(u_new, Nref)
+    p_new.zDosage = bytes(zdosage)
+    p_new.dosageOffset = np.array(dosage_offsets, dtype=np.int64)
+
+
+def _log_conflicts(n_conflicts: int) -> None:
+    if n_conflicts:
+        log(f"{n_conflicts} times where no overlapping matches because "
+            "query does not match any reference - set imputed value to 0")
+
+
+def _reference_columns(p_ref: PBWT):
+    """(Xcols (Nref, Mref) site-major natural-order alleles, None) with the
+    C runtime, else (None, Xref (Mref, Nref)); and ref_freq, each site's
+    share of 1 alleles in f64."""
+    a0 = (p_ref.aFstart if p_ref.aFstart is not None
+          else np.arange(p_ref.M, dtype=np.int32))
+    if native.get_lib() is not None and p_ref.yz:
+        Xcols, _, onec = native.natural_cols(p_ref.yz, p_ref.N, p_ref.M, a0)
+        return Xcols, None, onec / float(p_ref.M)
+    return (None, p_ref.haplotypes(),
+            ((p_ref.decoded(True) != 0).sum(axis=1)
+             / float(p_ref.M)).astype(np.float64))
+
+
+class ReferenceImputer:
+    """Reference imputation (referenceImpute3, pbwtImpute.c:1126-1261)
+    against a panel held standing on ``device``.
+
+    Set-up (the span ``setup.imputer``) decodes the reference once and keeps
+    its donor rows on the device in K5's layout with each site's allele
+    share (``.rows``), each reference site's frame coordinate (``.frame``)
+    and the frame's standing matcher (``.matcher``: ``DeviceMatcher`` of
+    ``p_frame``, the reference at the typed sites, where it has more than
+    ``DEVICE_MIN_M`` haplotypes; a smaller frame is matched by the host's C
+    sweep). :meth:`impute` then takes a batch of targets typed at the frame's
+    sites: their set-maximal matches against the frame, kernel K5's vote at
+    every reference site, and the host's output pass. The result owns its
+    sites, so a later call leaves an earlier result as it was; the imputer
+    changes neither ``p_ref`` nor ``p_frame``.
+    """
+
+    def __init__(self, p_ref: PBWT, p_frame: PBWT, device=None):
+        import torch
+
+        from .. import tracing
+        from ..ops import impute as vote, resolve_device
+        self.ref, self.frame = p_ref, p_frame
+        self.device = dev = resolve_device(device)
+        with tracing.span("setup.imputer"):
+            with tracing.span("setup.imputer.rows"):
+                Xcols, Xref, self.ref_freq = _reference_columns(p_ref)
+                self.rows = (vote.reference_rows(Xcols, dev) if Xref is None
+                             else vote.pitched_rows(torch.from_numpy(Xref)
+                                                    .to(dev)))
+                self.freq = torch.from_numpy(self.ref_freq).to(dev)
+                del Xcols, Xref
+            with tracing.span("setup.imputer.frame"):
+                self.kold = torch.from_numpy(_frame_coordinates(
+                    p_ref, p_frame).astype(np.int32)).to(dev)
+            with tracing.span("setup.imputer.matcher"):
+                self.matcher = (matchmod._matcher(p_frame, dev)
+                                if p_frame.M > matchmod.DEVICE_MIN_M
+                                else None)
+
+    def _matches(self, p_old: PBWT) -> np.ndarray:
+        """(n, 4) rows (target, donor, start, end) of every set-maximal
+        match of the targets against the frame: the standing matcher's, or
+        the host sweep's for a small frame. They are the same set; the vote
+        sums integer weights, exact in any order, so theirs does not
+        matter."""
+        from .. import tracing
+        if self.matcher is None:
+            with tracing.span("ops.impute.match"):
+                return _collect_matches(self.frame, p_old)
+        with tracing.span("ops.impute.targets"):
+            Xq = p_old.haplotypes()
+        with tracing.span("ops.impute.match"):
+            rows = self.matcher.match(Xq)
+        matchmod.log_best_matches(rows, p_old.M, p_old.N)
+        return rows
+
+    def impute(self, p_old: PBWT) -> PBWT:
+        """The imputed panel of the targets ``p_old`` (a PBWT of the frame's
+        sites): alleles, dosages and the final prefix array at every
+        reference site, the reference's sites (copies) with each one's
+        refFreq and info score, its chromosome, the targets' samples."""
+        import torch
+
+        from .. import tracing
+        from ..ops import impute as vote
+        if p_old.N != self.frame.N:
+            raise ValueError(f"{p_old.N} target sites against a frame of "
+                             f"{self.frame.N}")
+        T, Nref, dev = p_old.M, self.ref.N, self.device
+        with tracing.span("ops.impute"):
+            rows = self._matches(p_old)
+            if registry.is_check:
+                cnts = np.bincount(rows[:, 0], minlength=T)
+                for j in range(T):                      # + the end marker
+                    log(f"{int(cnts[j]) + 1} matches found to query {j}")
+            with tracing.span("ops.impute.segments"):
+                off, jref, s, e = (torch.from_numpy(c).to(dev) for c in
+                                   vote.segment_columns(rows, T))
+            with tracing.span("ops.impute.vote"):
+                out = vote.impute_vote(off, jref, s, e, self.rows, self.kold,
+                                       self.freq)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            with tracing.span("ops.impute.download"):
+                x_all, dos_all, voted = vote.download(*out)
+                del out
+            with tracing.span("ops.impute.sums"):
+                n_conflicts = int(T * Nref - np.count_nonzero(voted))
+                nvote, psums, xsums, pxsums = _vote_sums(voted, x_all,
+                                                         dos_all)
+                info = _impute_info(psums, xsums, pxsums, nvote)
+                sites = [site.copy() for site in self.ref.sites]
+                for site, f, i in zip(sites, self.ref_freq.tolist(),
+                                      info.tolist()):
+                    site.refFreq = f
+                    if i == i:                          # not NaN: voted
+                        site.imputeInfo = i
+            p_new = PBWT(T, Nref)
+            p_new.isRefFreq = True
+            with tracing.span("ops.impute.emit"):
+                _emit_pbwt(p_new, x_all, dos_all)
+            p_new.invalidate()
+            p_new.sites, p_new.chrom = sites, self.ref.chrom
+            p_new.samples = p_old.samples
+        tracing.count("ops.impute.targets", T)
+        tracing.count("ops.impute.segments", len(rows))
+        tracing.count("ops.impute.ref_sites", Nref)
+        tracing.count("ops.impute.genotypes", T * Nref)
+        _log_conflicts(n_conflicts)
+        return p_new
 
 
 def reference_impute3(p_old: PBWT, p_ref: PBWT, p_frame: PBWT,
                       n_sparse: int = 1, f_sparse: float = 1.0,
                       device=None) -> PBWT:
+    """referenceImpute3 (pbwtImpute.c:1126-1261): the imputed PBWT, each
+    reference site's refFreq and info score set on p_ref's sites. On the
+    device route a :class:`ReferenceImputer` made for this call."""
     msg = "Reference impute using maximal matches: "
     if n_sparse > 1:   # pbwtImpute.c:1136
         msg += f"(nSparse = {n_sparse}, fSparse = {f_sparse:.2f}) "
@@ -273,6 +436,11 @@ def reference_impute3(p_old: PBWT, p_ref: PBWT, p_frame: PBWT,
     # the targets its own haplotypes; complete entries copy straight
     # through and only missing ones vote (pbwtImpute.c:1323-1371)
     self_impute = p_old is p_frame
+    if not self_impute and device_requested():
+        p_new = ReferenceImputer(p_ref, p_frame, device).impute(p_old)
+        for site, got in zip(p_ref.sites, p_new.sites):
+            site.refFreq, site.imputeInfo = got.refFreq, got.imputeInfo
+        return p_new
     lib = native.get_lib()
     T, Nref = p_old.M, p_ref.N
     if self_impute:
@@ -289,11 +457,10 @@ def reference_impute3(p_old: PBWT, p_ref: PBWT, p_frame: PBWT,
     p_new.isRefFreq = True
     ref_sites = p_ref.sites
     kold_of_kref = _frame_coordinates(p_ref, p_frame)
-    use_device = not self_impute and device_requested()
     a_ref0 = (p_ref.aFstart if p_ref.aFstart is not None
               else np.arange(p_ref.M, dtype=np.int32))
 
-    if not use_device and lib is not None and p_ref.yz:
+    if lib is not None and p_ref.yz:
         # the whole core as one streaming C pass with O(Mref + T) live
         # memory (the reference's cursor memory model); the segments are
         # sorted by (target, start) in C, as the per-target scans require
@@ -314,68 +481,32 @@ def reference_impute3(p_old: PBWT, p_ref: PBWT, p_frame: PBWT,
         p_new.aFend = a_end
         p_new.dosageOffset = dos_off
     else:
-        # materialised paths: the device engine, or no native runtime
+        # without the C runtime: the segments and the panel materialised,
+        # the vote in numpy
         if seg_cols is not None:
             jr_c, s_c, e_c, seg_off = seg_cols
             rows = np.stack([np.repeat(np.arange(T), np.diff(seg_off)), jr_c,
                              s_c, e_c], axis=1).astype(np.int64)
         segments = rows[np.lexsort((rows[:, 2], rows[:, 0]))]
-        Xcols = Xref_nat = None
-        if lib is not None and p_ref.yz:
-            Xcols, _, onec = native.natural_cols(p_ref.yz, Nref, p_ref.M,
-                                                 a_ref0)
-            ref_freq = onec / float(p_ref.M)
-        else:
-            Xref_nat = p_ref.haplotypes()
-            ref_freq = ((p_ref.decoded(True) != 0).sum(axis=1)
-                        / float(p_ref.M)).astype(np.float64)
-        if use_device:
-            from ..ops import impute as device_impute
-            Xref = (device_impute.reference_rows(Xcols, device)
-                    if Xcols is not None else Xref_nat)
-            x_all, dos_all, voted = device_impute.impute_dosages_device(
-                segments, T, Xref, kold_of_kref, ref_freq, device=device)
-        else:
-            x_all, dos_all, voted = _vote_all_sites(
-                segments, T, Xref_nat, kold_of_kref, ref_freq)
-        voted = voted.astype(bool, copy=False)
+        _, Xref_nat, ref_freq = _reference_columns(p_ref)
+        x_all, dos_all, voted = _vote_all_sites(
+            segments, T, Xref_nat, kold_of_kref, ref_freq)
         if self_impute:
             miss = _missing_mask(p_ref)
-            x_nat = Xref_nat if Xref_nat is not None else Xcols.T
             n_conflicts = int((miss & ~voted).sum())
             voted = voted & miss
-            x_all = np.where(miss, x_all, x_nat).astype(np.uint8)
-            dos_all = np.where(miss, dos_all, x_nat.astype(np.float64))
+            x_all = np.where(miss, x_all, Xref_nat).astype(np.uint8)
+            dos_all = np.where(miss, dos_all, Xref_nat.astype(np.float64))
         else:
             n_conflicts = int((~voted).sum())
         nvote, psums, xsums, pxsums = _vote_sums(voted, x_all, dos_all)
-
-        u_new = engine.WriteCursor(T)
-        if lib is not None:
-            # whole output stage in one C pass (gather + pack3 + dosage
-            # RLE + prefix advance per site)
-            p_new.yz, p_new.zDosage, dos_off, p_new.aFend = _emit(
-                x_all, dos_all, u_new.a)
-            p_new.dosageOffset = dos_off
-        else:
-            zdosage = bytearray()
-            dosage_offsets: list[int] = []
-            for k_ref in range(Nref):
-                y_new = x_all[u_new.a, k_ref]
-                dosage_store(p_new, dos_all[u_new.a, k_ref], k_ref, zdosage,
-                             dosage_offsets)
-                u_new.write_forwards(y_new)
-            p_new.set_from_write_cursor(u_new, Nref)
-            p_new.zDosage = bytes(zdosage)
-            p_new.dosageOffset = np.array(dosage_offsets, dtype=np.int64)
+        _emit_pbwt(p_new, x_all, dos_all)
     p_new.N = Nref
     p_new.invalidate()
     for k_ref in range(Nref):
         ref_sites[k_ref].refFreq = float(ref_freq[k_ref])
     _set_impute_info(ref_sites, psums, xsums, pxsums, nvote)
-    if n_conflicts:
-        log(f"{n_conflicts} times where no overlapping matches because "
-            "query does not match any reference - set imputed value to 0")
+    _log_conflicts(n_conflicts)
     return p_new
 
 

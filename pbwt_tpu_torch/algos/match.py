@@ -460,13 +460,18 @@ def match_sequences_sweep_rows(p: PBWT, q: PBWT):
         rows = native.sweep_match(p.decoded(True), ap0, q.decoded(True), aq0)
     if rows is None:
         return None
+    log_best_matches(rows, QM, N)
+    return rows
+
+
+def log_best_matches(rows: np.ndarray, QM: int, N: int) -> None:
+    """The sweep's summary line of its (n, 4) rows (pbwtMatch.c:443-445)."""
     nz = rows[rows[:, 2] != rows[:, 3]]
-    tot_len = int((nz[:, 3] - nz[:, 2]).sum())
+    tot_len = int((nz[:, 3].astype(np.int64) - nz[:, 2]).sum())
     log(f"Average number of best matches including alternates "
         f"{len(rows) / QM:.1f}, Average length "
         f"{tot_len / max(len(nz), 1):.1f}, Av number per position "
         f"{tot_len / (QM * N):.1f}")
-    return rows
 
 
 def match_sequences_sweep(p: PBWT, q: PBWT, report, device=None) -> None:

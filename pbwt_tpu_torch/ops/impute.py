@@ -179,7 +179,7 @@ def pitched_rows(Xref: torch.Tensor) -> torch.Tensor:
 
 def reference_rows(Xcols: np.ndarray, device=None) -> torch.Tensor:
     """Site-major (Nref, Mref) donor alleles -> the (Mref, Nref) uint8 rows
-    :func:`impute_dosages_device` reads, transposed on the device into
+    :func:`impute_vote` reads, transposed on the device into
     :func:`pitched_rows`' layout."""
     dev = resolve_device(device)
     return pitched_rows(torch.from_numpy(
@@ -194,41 +194,6 @@ def segment_columns(segments: np.ndarray, n_targets: int):
     np.cumsum(np.bincount(segs[:, 0], minlength=n_targets), out=off[1:])
     return (off, *(np.ascontiguousarray(segs[:, c], np.int32)
                    for c in (1, 2, 3)))
-
-
-def impute_dosages_device(segments: np.ndarray, n_targets: int, Xref_nat,
-                          kold_of_kref: np.ndarray, ref_freq: np.ndarray,
-                          device=None):
-    """Weighted-vote imputation on ``device``, the contract of
-    ``pbwt_tpu.ops.impute_jax.impute_dosages_device``.
-
-    segments: (nseg, 4) integer rows (target j, donor jref, start, end) in
-              frame coordinates
-    Xref_nat: (Mref, Nref) uint8 reference alleles in natural order, a
-              numpy array or a tensor already on the device
-              (:func:`reference_rows`)
-    kold_of_kref: (Nref,) frame coordinate of each reference site
-    ref_freq:  (Nref,) fallback allele frequency per site
-
-    Returns (x, dosage, voted): (T, Nref) imputed alleles uint8, posterior
-    f64, and the covered-by-any-match mask, as numpy arrays.
-    """
-    dev = resolve_device(device)
-    if not torch.is_tensor(Xref_nat):
-        Xref_nat = torch.from_numpy(np.ascontiguousarray(Xref_nat, np.uint8))
-    off, jref, s, e, kold, freq = upload_columns(segments, n_targets,
-                                                 kold_of_kref, ref_freq, dev)
-    return download(*impute_vote(off, jref, s, e, Xref_nat.to(dev), kold,
-                                 freq))
-
-
-def upload_columns(segments, n_targets, kold_of_kref, ref_freq, dev):
-    """The vote's inputs on dev: :func:`segment_columns` of the segments,
-    then kold as int32 and ref_freq as float64."""
-    cols = (*segment_columns(np.asarray(segments), n_targets),
-            np.asarray(kold_of_kref, np.int32),
-            np.asarray(ref_freq, np.float64))
-    return tuple(torch.from_numpy(c).to(dev) for c in cols)
 
 
 def download(dosage, x, voted):

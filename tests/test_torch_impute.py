@@ -1,8 +1,8 @@
 """The port's reference imputation on the CPU against the JAX package's:
-the plain twin of kernel K5 against impute_jax.impute_dosages_device (alleles
-and quantised dosages) and against the port's host routes (dosages bit for
-bit), and reference_impute3 as a whole on all three of the port's routes
-against pbwt_tpu.algos.impute's."""
+the plain twin of kernel K5, called as ReferenceImputer calls it, against
+impute_jax.impute_dosages_device (alleles and quantised dosages) and against
+the port's host routes (dosages bit for bit), and reference_impute3 as a
+whole on all three of the port's routes against pbwt_tpu.algos.impute's."""
 
 import io
 
@@ -89,10 +89,25 @@ def bits(a):
     return np.ascontiguousarray(a, np.float64).view(np.int64)
 
 
+def device_vote(segments, T, Xref, kold, ref_freq):
+    """The vote as ReferenceImputer.impute takes it, on CPU tensors:
+    segment_columns, impute_vote (K5's plain twin here) and download;
+    Xref (Mref, Nref) uint8 as numpy or a tensor. Returns (x, dosage,
+    voted) as numpy arrays."""
+    cols = port_device.segment_columns(np.asarray(segments), T)
+    off, jref, s, e = (torch.from_numpy(c) for c in cols)
+    if not torch.is_tensor(Xref):
+        Xref = torch.from_numpy(np.ascontiguousarray(Xref, np.uint8))
+    kold = torch.from_numpy(np.asarray(kold, np.int32))
+    freq = torch.from_numpy(np.asarray(ref_freq, np.float64))
+    return port_device.download(*port_device.impute_vote(
+        off, jref, s, e, Xref, kold, freq))
+
+
 @pytest.mark.parametrize("Mref,N", [(255, 130), (256, 700), (1023, 130),
                                     (1024, 513)])
 def test_vote_twin_matches_jax_and_host(Mref, N):
-    """K5's plain twin through impute_dosages_device(device="cpu") against
+    """K5's plain twin, as ReferenceImputer calls it on CPU tensors, against
     the JAX package's device pass (x equal, dosage_encode bytes equal: its
     f32 sums are only close) and against the port's numpy host vote (dosage
     equal bit for bit), with a target that has no match and Nref not a
@@ -102,8 +117,7 @@ def test_vote_twin_matches_jax_and_host(Mref, N):
     segments, kold, ref_freq = vote_inputs(Xref, Xq, frame_idx, drop=4)
     assert len(segments) > T and N % 512
     before = dict(kernels.LAUNCHES)
-    x, dosage, voted = port_device.impute_dosages_device(
-        segments, T, Xref, kold, ref_freq, device="cpu")
+    x, dosage, voted = device_vote(segments, T, Xref, kold, ref_freq)
     assert kernels.LAUNCHES == before    # CPU tensors never reach a kernel
     assert x.dtype == np.uint8 and dosage.dtype == np.float64
     assert voted.dtype == bool and x.shape == dosage.shape == (T, N)
@@ -133,14 +147,12 @@ def test_vote_twin_edge_shapes():
         np.ascontiguousarray(Xref.T), device="cpu")
     assert torch.equal(rows, torch.from_numpy(Xref))
     none = np.zeros((0, 4), np.int64)
-    x, dosage, voted = port_device.impute_dosages_device(
-        none, 1, reference, kold, freq, device="cpu")
+    x, dosage, voted = device_vote(none, 1, reference, kold, freq)
     assert not voted.any() and np.array_equal(bits(dosage[0]), bits(freq))
     assert np.array_equal(x[0], freq > 0.5)
     # [start, end) = [5, 6): (k - 5)(6 - k) is never positive at an integer k
     thin = np.array([[0, 3, 5, 6], [0, 7, 2, 9]], np.int64)
-    x, dosage, voted = port_device.impute_dosages_device(
-        thin, 1, Xref, kold, freq, device="cpu")
+    x, dosage, voted = device_vote(thin, 1, Xref, kold, freq)
     inside = (kold > 2) & (kold < 9)
     assert np.array_equal(voted[0], inside)
     assert np.array_equal(dosage[0][inside], Xref[7][inside].astype(float))
@@ -429,13 +441,19 @@ def site_fields(p_new, p_ref):
 
 
 @pytest.mark.parametrize("route", ["0", "cpu", "no_runtime"])
-@pytest.mark.parametrize("seed,Mref,T,N", [(0, 40, 6, 120), (5, 300, 21, 97)])
+@pytest.mark.parametrize("seed,Mref,T,N", [(0, 40, 6, 120), (5, 300, 21, 97),
+                                           (9, 600, 7, 200)])
 def test_reference_impute3_matches_jax_package(monkeypatch, route, seed, Mref,
                                                T, N):
     """reference_impute3 of the port on its host C route, on the device
     route (K5's twin on CPU tensors) and without the C runtime, against
     pbwt_tpu.algos.impute's: yz, zDosage, dosageOffset, aFend, and every
-    site's refFreq and imputeInfo, exactly."""
+    site's refFreq and imputeInfo, exactly. On the device route a frame of
+    more than DEVICE_MIN_M haplotypes is matched by the imputer's
+    DeviceMatcher, once, and never by the host sweep; a smaller one by the
+    sweep."""
+    from pbwt_tpu_torch.algos import match as port_match
+    from pbwt_tpu_torch.ops import match as port_ops_match
     Xref, Xq, frame_idx = problem(seed, Mref, T, N)
     po_j, pr_j, pf_j = panels(ref_pbwt, ref_registry, Xref, Xq, frame_idx)
     want = ref_impute.reference_impute3(po_j, pr_j, pf_j)
@@ -445,12 +463,22 @@ def test_reference_impute3_matches_jax_package(monkeypatch, route, seed, Mref,
         monkeypatch.setattr(port_native, "get_lib", lambda: None)
     else:
         monkeypatch.setenv("PBWT_TORCH_DEVICE", route)
-    votes = []
+    votes, matched, swept = [], [], []
     real = port_device.impute_vote
     monkeypatch.setattr(port_device, "impute_vote",
                         lambda *a: votes.append(1) or real(*a))
+    real_match = port_ops_match.DeviceMatcher.match
+    monkeypatch.setattr(port_ops_match.DeviceMatcher, "match",
+                        lambda self, Xq: matched.append(len(Xq))
+                        or real_match(self, Xq))
+    real_sweep = port_impute._collect_matches
+    monkeypatch.setattr(port_impute, "_collect_matches",
+                        lambda *a: swept.append(1) or real_sweep(*a))
     got = port_impute.reference_impute3(p_old, p_ref, p_frame)
     assert len(votes) == (route == "cpu")
+    on_matcher = route == "cpu" and Mref > port_match.DEVICE_MIN_M
+    assert matched == ([T] if on_matcher else [])
+    assert len(swept) == (not on_matcher)
     assert got.isRefFreq and got.dosageOffset is not None
     assert site_fields(got, p_ref) == site_fields(want, pr_j)
     assert any(s.imputeInfo not in (0.0, 1.0) for s in p_ref.sites)

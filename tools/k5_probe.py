@@ -350,8 +350,9 @@ def probe(tmp):
     card = card_name()
     T = cs.IMPUTE_T
     segments, kold, Xref, freq = path_inputs(cs.IMPUTE_NREF)
-    off, jref, s, e, ko, fr = impute.upload_columns(segments, T, kold, freq,
-                                                    dev)
+    off, jref, s, e, ko, fr = (torch.from_numpy(c).to(dev) for c in (
+        *impute.segment_columns(segments, T), kold.astype(np.int32),
+        np.asarray(freq, np.float64)))
     X = impute.pitched_rows(torch.from_numpy(Xref).to(dev))
     say("inputs", T=T, Mref=X.shape[0], Nref=X.shape[1],
         segments=jref.numel(), covering_pairs=covering_pairs(
