@@ -20,13 +20,14 @@ glibc rand() stream (:mod:`pbwt_tpu_torch.core.crand`).
 
 from __future__ import annotations
 
+import gc
 import math
 import sys
 
 import numpy as np
 
 from ..core import crand, engine, native, pack3 as p3, registry
-from ..core.pbwt import PBWT
+from ..core.pbwt import PBWT, Site
 from ..ops import device_requested
 from ..utils import log, time_update
 from . import match as matchmod
@@ -348,6 +349,14 @@ class ReferenceImputer:
                 self.matcher = (matchmod._matcher(p_frame, dev)
                                 if p_frame.M > matchmod.DEVICE_MIN_M
                                 else None)
+        # each result's sites are made from these columns of the
+        # reference's, and the results' streams come to the host through a
+        # pinned buffer on a card (:func:`..ops.impute.download_emit`)
+        self._site_columns = ([s.x for s in p_ref.sites],
+                              [s.varD for s in p_ref.sites],
+                              [s.freq for s in p_ref.sites],
+                              self.ref_freq.tolist())
+        self._staging = None
 
     def _matches(self, p_old: PBWT) -> np.ndarray:
         """(n, 4) rows (target, donor, start, end) of every set-maximal
@@ -393,24 +402,12 @@ class ReferenceImputer:
                                        self.freq)
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
-            with tracing.span("ops.impute.download"):
-                x_all, dos_all, voted = vote.download(*out)
-                del out
-            with tracing.span("ops.impute.sums"):
-                n_conflicts = int(T * Nref - np.count_nonzero(voted))
-                nvote, psums, xsums, pxsums = _vote_sums(voted, x_all,
-                                                         dos_all)
-                info = _impute_info(psums, xsums, pxsums, nvote)
-                sites = [site.copy() for site in self.ref.sites]
-                for site, f, i in zip(sites, self.ref_freq.tolist(),
-                                      info.tolist()):
-                    site.refFreq = f
-                    if i == i:                          # not NaN: voted
-                        site.imputeInfo = i
             p_new = PBWT(T, Nref)
             p_new.isRefFreq = True
-            with tracing.span("ops.impute.emit"):
-                _emit_pbwt(p_new, x_all, dos_all)
+            n_conflicts, sites = self._emit(p_new, out)
+            if dev.type == "cuda":
+                tracing.count("ops.impute.card_emits")
+            del out
             p_new.invalidate()
             p_new.sites, p_new.chrom = sites, self.ref.chrom
             p_new.samples = p_old.samples
@@ -420,6 +417,56 @@ class ReferenceImputer:
         tracing.count("ops.impute.genotypes", T * Nref)
         _log_conflicts(n_conflicts)
         return p_new
+
+    def _sites(self, sums) -> list:
+        """The result's own copies of the reference's sites, each with its
+        refFreq and, where a target voted, its info score (elsewhere the
+        reference site's), from the (count, dosages, alleles, dosage x
+        allele) sums a site. The collector is held off while they are made:
+        they hold no cycles, and the collections that tens of thousands of
+        new objects would set off walk every object the process holds."""
+        info = _impute_info(*sums[1:], sums[0])
+        unvoted = np.flatnonzero(np.isnan(info)).tolist()
+        info = info.tolist()
+        for k in unvoted:
+            info[k] = self.ref.sites[k].imputeInfo
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            return list(map(Site, *self._site_columns, info))
+        finally:
+            if enabled:
+                gc.enable()
+
+    def _emit(self, p_new: PBWT, out) -> tuple[int, list]:
+        """The output stage where K5's results are (kernel K8 on the card,
+        its twins on CPU tensors): the sums a site (``.sums``, with the
+        info scores and the sites), the sorted code rows and the streams
+        (``.emit``, with the wait for them), and what the panel holds to the
+        host (``.download``). Returns (the (target, site) entries no
+        segment voted at, the result's sites)."""
+        import torch
+
+        from .. import tracing
+        from ..ops import impute as vote
+        T, Nref = p_new.M, p_new.N
+        with tracing.span("ops.impute.sums"):
+            sums, codes = vote.vote_sums(*out)
+            sums = sums.cpu().numpy()
+            nvote = sums[0].astype(np.int64)
+            sites = self._sites((nvote, *sums[1:]))
+        with tracing.span("ops.impute.emit"):
+            rows, a_end = vote.sort_codes(codes, T)
+            del codes
+            streams = vote.encode_rows(rows, T)
+            del rows
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        with tracing.span("ops.impute.download"):
+            (p_new.yz, p_new.zDosage, p_new.dosageOffset, p_new.aFend,
+             self._staging) = vote.download_emit(*streams, a_end,
+                                                 self._staging)
+        return int(T * Nref - nvote.sum()), sites
 
 
 def reference_impute3(p_old: PBWT, p_ref: PBWT, p_frame: PBWT,

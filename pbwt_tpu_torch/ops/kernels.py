@@ -61,6 +61,9 @@ _SIGNATURES = {
     "k6_paint_accumulate": [_I, _I, _I, _I, _P, _P, _L, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _P, _P, _P, _P],
     "k7_fm_step": [_I, _P, _P, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P],
+    "k8_sums": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "k8_chain": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "k8_encode": [_I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 # entries that launch another entry's kernel, counted under its name
@@ -73,7 +76,7 @@ REPLAYS: dict[str, int] = {}
 
 # entries that launch nothing: name -> argument types
 _AUX_SIGNATURES = {"pbwt_partition_layout": [_I], "k3_plane_layout": [_I],
-                   "k5_layout": [_I]}
+                   "k5_layout": [_I], "k8_layout": [_I]}
 
 # scratch of the partition kernels (K1, K2): ints of the header, ints of one
 # tile summary, and the fewest rows of a tile; checked against the compiled
@@ -89,6 +92,10 @@ PLANE_WORDS = 4
 
 # K5's sites a chunk and most chunks a span of a block; checked likewise
 K5_LAYOUT = (256, 32)
+
+# K8's chain block: shared bytes before its prefix array, rows of its ring,
+# most threads, positions a thread of the wide chain; checked likewise
+K8_LAYOUT = (144, 2, 1024, 8)
 
 _lock = threading.Lock()
 _lib = None
@@ -183,6 +190,9 @@ def _load() -> ctypes.CDLL:
         raise RuntimeError(f"pbwt_tpu_torch: K5 layout "
                            f"{(lib.k5_layout(1), lib.k5_layout(2))}"
                            f" != {K5_LAYOUT}")
+    got = tuple(lib.k8_layout(i) for i in (1, 2, 3, 4))
+    if got != K8_LAYOUT:
+        raise RuntimeError(f"pbwt_tpu_torch: K8 layout {got} != {K8_LAYOUT}")
     return lib
 
 

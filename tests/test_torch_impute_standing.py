@@ -155,7 +155,9 @@ def test_imputer_spans_and_counters():
     """Set-up is setup.imputer with .rows, .frame and .matcher; a call is
     the root ops.impute, its stages its children, the matcher's own spans
     inside .match; the counters hold the call's targets, segments,
-    reference sites and genotypes."""
+    reference sites and genotypes. ops.impute.card_emits counts the calls
+    whose output stage ran on the card's kernels: here, on the CPU, where
+    their twins run, it is absent."""
     _, _, _, p_ref, p_frame, p_old = problem(2)
     imputer = impute.ReferenceImputer(p_ref, p_frame, "cpu")
     tot = tracing.totals()
@@ -179,8 +181,36 @@ def test_imputer_spans_and_counters():
     assert cnt["ops.impute.targets"] == T and cnt["ops.impute.segments"] == rows
     assert cnt["ops.impute.ref_sites"] == NREF
     assert cnt["ops.impute.genotypes"] == T * NREF
+    assert "ops.impute.card_emits" not in cnt
     inside = sum(r.seconds for r in recs if r.parent == root.id)
     assert inside <= root.seconds
+
+
+def test_batch_past_the_chain_block_keeps_the_card_stage(monkeypatch):
+    """A batch of more targets than the chain block's shared memory holds
+    (CHAIN_SHARED_TARGETS, patched below T here) takes the same output
+    stage, on the wide chain: K8's three wrappers, never the host's C pass
+    impute_emit; and writes the host route's panel, info scores and
+    refFreq."""
+    from pbwt_tpu_torch.ops import impute as vote
+    _, _, _, p_ref, p_frame, p_old = problem(6)
+    monkeypatch.setenv("PBWT_TORCH_DEVICE", "0")
+    want = impute.reference_impute3(p_old, p_ref, p_frame)
+    info = [(s.refFreq, s.imputeInfo) for s in p_ref.sites]
+    imputer = impute.ReferenceImputer(p_ref, p_frame, "cpu")
+    monkeypatch.setattr(vote, "CHAIN_SHARED_TARGETS", T - 1)
+    assert vote.emit_config(T, torch.device("cpu"))[2]
+    ran = []
+    for mod, name in ((native, "impute_emit"), (vote, "vote_sums"),
+                      (vote, "sort_codes"), (vote, "encode_rows")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name:
+                            ran.append(_n) or _r(*a))
+    got = imputer.impute(p_old)
+    assert ran == ["vote_sums", "sort_codes", "encode_rows"]
+    assert (got.yz, got.zDosage, list(got.dosageOffset), list(got.aFend)) == \
+        (want.yz, want.zDosage, list(want.dosageOffset), list(want.aFend))
+    assert [(s.refFreq, s.imputeInfo) for s in got.sites] == info
 
 
 def _cli(args, device, cwd):
