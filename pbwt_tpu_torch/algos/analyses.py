@@ -13,31 +13,6 @@ from ..core.pbwt import PBWT
 from ..utils import log, time_update
 
 
-def _stream_sorted_columns(p: PBWT, chunk: int = 512):
-    """Yield (k0, Ychunk) with Ychunk (nc, M) sorted-order columns, decoding
-    the pack3 stream incrementally so live memory stays O(chunk * M)
-    (the reference materialises one column at a time through its cursor,
-    pbwtCore.c:527-585; full decode would be O(N * M))."""
-    from ..core import native
-    lib = native.get_lib()
-    if p.yz and lib is not None and p._decoded_f is None:
-        buf = np.frombuffer(bytes(p.yz), np.uint8)
-        off = 0
-        for k0 in range(0, p.N, chunk):
-            nc = min(chunk, p.N - k0)
-            out = np.empty((nc, p.M), np.uint8)
-            used = lib.p3_decode_cols(buf[off:], len(buf) - off, nc, p.M,
-                                      out.reshape(-1))
-            if used < 0:
-                raise ValueError("corrupt pack3 stream")
-            off += used
-            yield k0, out
-        return
-    Y = p.decoded(True)
-    for k0 in range(0, p.N, chunk):
-        yield k0, Y[k0:k0 + chunk]
-
-
 def pretty_plot(p: PBWT, fp, K: int) -> None:
     """prettyPlot (pbwtMain.c:60-78): rows in sort order at site K, columns
     K-100..K+20.  Streams the pack3 cursor; only the 121-column window is
@@ -47,7 +22,7 @@ def pretty_plot(p: PBWT, fp, K: int) -> None:
     aK = a
     win = np.zeros((max(hi - lo, 0), p.M), np.uint8)
     done = False
-    for k0, Yc in _stream_sorted_columns(p):
+    for k0, Yc in p.stream_sorted(512):
         if done:
             break
         for s in range(Yc.shape[0]):
@@ -76,7 +51,7 @@ def export_site_info(p: PBWT, fp, f1: int, f2: int) -> None:
     d[0] = 1
     d[p.M] = 1
     n = 0
-    for k0, Yc in _stream_sorted_columns(p):
+    for k0, Yc in p.stream_sorted(512):
         for s in range(Yc.shape[0]):
             i = k0 + s
             y = Yc[s]
@@ -103,13 +78,11 @@ def site_frequency_spectrum(p: PBWT) -> None:
     """siteFrequencySpectrum (pbwtMain.c:104-143): log-binned SFS; also fills
     Site.freq and writes sites.freq when sites are present."""
     time_update()
-    counts1 = None
     if p.yz and p._decoded_f is None:
         from ..core import native
-        c0 = native.col_counts(p.yz, p.M, p.N)
-        if c0 is not None:      # O(M) live memory: counts off the RLE bytes
-            counts1 = p.M - c0
-    if counts1 is None:
+        # O(M) live memory: counts off the RLE bytes
+        counts1 = p.M - native.col_counts(p.yz, p.M, p.N)
+    else:
         counts1 = (p.decoded(True) != 0).sum(axis=1)
     hist = np.bincount(counts1, minlength=p.M + 1)
     if p.sites is not None:

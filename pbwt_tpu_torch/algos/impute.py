@@ -8,11 +8,10 @@ Counterpart of ``pbwt_tpu/algos/impute.py``. ``-referenceImpute``
 :class:`ReferenceImputer`: the reference standing on the device, the
 targets' matches from its frame's ``DeviceMatcher`` and the votes from
 kernel K5. On the host the matches come from the C sweep (for
-``-imputeMissing``, ``impute_missing``, the C within-panel scan; the
-callback matchers without the C runtime) and the votes from the streaming
-C pass, or numpy without the C runtime. All give the same bytes: the match
-sets are equal, and a vote's weights are
-integers, so its f64 sums are exact in any order. ``-genotypeCompare``,
+``-imputeMissing``, ``impute_missing``, the C within-panel scan) and the
+votes from the streaming C pass. Both give the same bytes: the match sets
+are equal, and a vote's weights are integers, so its f64 sums are exact in
+any order. ``-genotypeCompare``,
 ``-corruptSites``, ``-corruptSamples`` and ``-copySamples`` run on the
 host C runtime, as in the JAX package; the last three draw from its
 glibc rand() stream (:mod:`pbwt_tpu_torch.core.crand`).
@@ -112,17 +111,8 @@ def dosage_retrieve(p: PBWT, y: np.ndarray, k: int) -> np.ndarray:
 def _collect_matches(p_frame: PBWT, p_old: PBWT) -> np.ndarray:
     """The maximal matches of every target haplotype against the frame as
     (n, 4) int64 rows [target, jRef, start, end] in report order: the C
-    sweep's, or the callback sweep's without the C runtime."""
-    rows = None
-    if native.get_lib() is not None:
-        rows = matchmod.match_sequences_sweep_rows(p_frame, p_old)
-    if rows is None:
-        reports: list[tuple[int, int, int, int]] = []
-        matchmod.match_sequences_sweep(
-            p_frame, p_old, lambda iq, j_ref, start, end:
-            reports.append((iq, j_ref, start, end)))
-        rows = np.asarray(reports, np.int64).reshape(-1, 4)
-    return rows
+    sweep's."""
+    return matchmod.match_sequences_sweep_rows(p_frame, p_old)
 
 
 def _vote_all_sites(segments: np.ndarray, T: int, Xref_nat: np.ndarray,
@@ -190,36 +180,11 @@ def _within_segments(p_frame: PBWT):
         return empty, empty, empty, np.zeros(T + 1, np.int64)
     a0 = (p_frame.aFstart if p_frame.aFstart is not None
           else np.arange(T, dtype=np.int32))
-    if p_frame.yz and native.get_lib() is not None:
-        # two passes of the C scan straight into per-target runs, sorted by
-        # start in place: the (n, 4) row set is never held
-        cols = native.max_within_bucketed(p_frame.yz, T, p_frame.N, a0)
-        native.buckets_sort_start(*cols)
-        return cols
-    reports: list[tuple[int, int, int, int]] = []
-    matchmod.match_maximal_within(
-        p_frame, lambda ai, bi, s, e: reports.append((ai, bi, s, e)))
-    rows = np.asarray(reports, np.int64).reshape(-1, 4)
-    rows = rows[np.lexsort((rows[:, 2], rows[:, 0]))]
-    seg_off = np.zeros(T + 1, np.int64)
-    np.cumsum(np.bincount(rows[:, 0], minlength=T), out=seg_off[1:])
-    return (*(np.ascontiguousarray(rows[:, c], np.int32) for c in (1, 2, 3)),
-            seg_off)
-
-
-def _missing_mask(p: PBWT) -> np.ndarray:
-    """(M, N) bool: the entries of p marked missing, in natural order (each
-    site's pack3 column of the missing stream, offset 0 = none)."""
-    miss = np.zeros((p.M, p.N), bool)
-    if p.missingOffset is None:
-        return miss
-    buf = np.frombuffer(p.zMissing, np.uint8)
-    for k in np.flatnonzero(p.missingOffset):
-        off = int(p.missingOffset[k])
-        syms, lens = p3.decode_lengths(buf[off:off + p.M])
-        n = int(np.searchsorted(np.cumsum(lens), p.M)) + 1
-        miss[:, k] = np.repeat(syms[:n], lens[:n])[:p.M] != 0
-    return miss
+    # two passes of the C scan straight into per-target runs, sorted by
+    # start in place: the (n, 4) row set is never held
+    cols = native.max_within_bucketed(p_frame.yz, T, p_frame.N, a0)
+    native.buckets_sort_start(*cols)
+    return cols
 
 
 def _frame_coordinates(p_ref: PBWT, p_frame: PBWT) -> np.ndarray:
@@ -244,12 +209,6 @@ def _vote_sums(voted, x_all, dos_all):
             np.where(voted, dos_all * x_all, 0.0).sum(axis=0))
 
 
-def _emit(x_all, dos_all, a):
-    """native.impute_emit on the (T, Nref) results made site-major."""
-    return native.impute_emit(np.ascontiguousarray(x_all.T),
-                              np.ascontiguousarray(dos_all.T), a)
-
-
 def _impute_info(psums, xsums, pxsums, nvote) -> np.ndarray:
     """Each reference site's info score (pbwtImpute.c:1250-1259), NaN where
     no target voted: the score stays what the site held."""
@@ -267,29 +226,6 @@ def _set_impute_info(ref_sites, psums, xsums, pxsums, nvote) -> None:
         ref_sites[k_ref].imputeInfo = float(info[k_ref])
 
 
-def _emit_pbwt(p_new: PBWT, x_all, dos_all) -> None:
-    """The output stage: p_new's pack3 alleles, dosages and final prefix
-    array from the (T, Nref) results, in one C pass (gather + pack3 + dosage
-    RLE + prefix advance per site), or a site at a time without the C
-    runtime."""
-    T, Nref = x_all.shape
-    u_new = engine.WriteCursor(T)
-    if native.get_lib() is not None:
-        p_new.yz, p_new.zDosage, p_new.dosageOffset, p_new.aFend = _emit(
-            x_all, dos_all, u_new.a)
-        return
-    zdosage = bytearray()
-    dosage_offsets: list[int] = []
-    for k_ref in range(Nref):
-        y_new = x_all[u_new.a, k_ref]
-        dosage_store(p_new, dos_all[u_new.a, k_ref], k_ref, zdosage,
-                     dosage_offsets)
-        u_new.write_forwards(y_new)
-    p_new.set_from_write_cursor(u_new, Nref)
-    p_new.zDosage = bytes(zdosage)
-    p_new.dosageOffset = np.array(dosage_offsets, dtype=np.int64)
-
-
 def _log_conflicts(n_conflicts: int) -> None:
     if n_conflicts:
         log(f"{n_conflicts} times where no overlapping matches because "
@@ -297,34 +233,30 @@ def _log_conflicts(n_conflicts: int) -> None:
 
 
 def _reference_columns(p_ref: PBWT):
-    """(Xcols (Nref, Mref) site-major natural-order alleles, None) with the
-    C runtime, else (None, Xref (Mref, Nref)); and ref_freq, each site's
-    share of 1 alleles in f64."""
+    """(Xcols (Nref, Mref) site-major natural-order alleles, ref_freq each
+    site's share of 1 alleles in f64), in one C pass over the pack3 bytes."""
     a0 = (p_ref.aFstart if p_ref.aFstart is not None
           else np.arange(p_ref.M, dtype=np.int32))
-    if native.get_lib() is not None and p_ref.yz:
-        Xcols, _, onec = native.natural_cols(p_ref.yz, p_ref.N, p_ref.M, a0)
-        return Xcols, None, onec / float(p_ref.M)
-    return (None, p_ref.haplotypes(),
-            ((p_ref.decoded(True) != 0).sum(axis=1)
-             / float(p_ref.M)).astype(np.float64))
+    Xcols, _, onec = native.natural_cols(p_ref.yz, p_ref.N, p_ref.M, a0)
+    return Xcols, onec / float(p_ref.M)
 
 
 class ReferenceImputer:
     """Reference imputation (referenceImpute3, pbwtImpute.c:1126-1261)
     against a panel held standing on ``device``.
 
-    Set-up (the span ``setup.imputer``) decodes the reference once and keeps
-    its donor rows on the device in K5's layout with each site's allele
-    share (``.rows``), each reference site's frame coordinate (``.frame``)
-    and the frame's standing matcher (``.matcher``: ``DeviceMatcher`` of
-    ``p_frame``, the reference at the typed sites, where it has more than
-    ``DEVICE_MIN_M`` haplotypes; a smaller frame is matched by the host's C
-    sweep). :meth:`impute` then takes a batch of targets typed at the frame's
-    sites: their set-maximal matches against the frame, kernel K5's vote at
-    every reference site, and the host's output pass. The result owns its
-    sites, so a later call leaves an earlier result as it was; the imputer
-    changes neither ``p_ref`` nor ``p_frame``.
+    Set-up (the span ``setup.imputer``) decodes the reference once (one C
+    pass over its pack3 bytes) and keeps its donor rows on the device in
+    K5's layout with each site's allele share (``.rows``), each reference
+    site's frame coordinate (``.frame``) and the frame's standing matcher
+    (``.matcher``: ``DeviceMatcher`` of ``p_frame``, the reference at the
+    typed sites, where it has more than ``DEVICE_MIN_M`` haplotypes; a
+    smaller frame is matched by the host's C sweep). :meth:`impute` then
+    takes a batch of targets typed at the frame's sites: their set-maximal
+    matches against the frame, kernel K5's vote at every reference site,
+    and the host's output pass. The result owns its sites, so a later call
+    leaves an earlier result as it was; the imputer changes neither
+    ``p_ref`` nor ``p_frame``.
     """
 
     def __init__(self, p_ref: PBWT, p_frame: PBWT, device=None):
@@ -336,12 +268,10 @@ class ReferenceImputer:
         self.device = dev = resolve_device(device)
         with tracing.span("setup.imputer"):
             with tracing.span("setup.imputer.rows"):
-                Xcols, Xref, self.ref_freq = _reference_columns(p_ref)
-                self.rows = (vote.reference_rows(Xcols, dev) if Xref is None
-                             else vote.pitched_rows(torch.from_numpy(Xref)
-                                                    .to(dev)))
+                Xcols, self.ref_freq = _reference_columns(p_ref)
+                self.rows = vote.reference_rows(Xcols, dev)
                 self.freq = torch.from_numpy(self.ref_freq).to(dev)
-                del Xcols, Xref
+                del Xcols
             with tracing.span("setup.imputer.frame"):
                 self.kold = torch.from_numpy(_frame_coordinates(
                     p_ref, p_frame).astype(np.int32)).to(dev)
@@ -488,7 +418,6 @@ def reference_impute3(p_old: PBWT, p_ref: PBWT, p_frame: PBWT,
         for site, got in zip(p_ref.sites, p_new.sites):
             site.refFreq, site.imputeInfo = got.refFreq, got.imputeInfo
         return p_new
-    lib = native.get_lib()
     T, Nref = p_old.M, p_ref.N
     if self_impute:
         seg_cols, rows = _within_segments(p_frame), None
@@ -507,47 +436,23 @@ def reference_impute3(p_old: PBWT, p_ref: PBWT, p_frame: PBWT,
     a_ref0 = (p_ref.aFstart if p_ref.aFstart is not None
               else np.arange(p_ref.M, dtype=np.int32))
 
-    if lib is not None and p_ref.yz:
-        # the whole core as one streaming C pass with O(Mref + T) live
-        # memory (the reference's cursor memory model); the segments are
-        # sorted by (target, start) in C, as the per-target scans require
-        # (the reference qsorts each target's list by start,
-        # pbwtImpute.c:1150-1159)
-        if seg_cols is None:
-            seg_cols = native.segs_sort(rows, T)
-        jr_c, s_c, e_c, seg_off = seg_cols
-        missing = {}
-        if self_impute:
-            missing = dict(zmiss=p_ref.zMissing, miss_off=(
-                p_ref.missingOffset if p_ref.missingOffset is not None
-                else np.zeros(Nref, np.int64)))
-        (p_new.yz, p_new.zDosage, dos_off, ref_freq, psums, xsums,
-         pxsums, nvote, n_conflicts, a_end) = native.impute_vote_emit(
-            p_ref.yz, p_ref.M, Nref, a_ref0, None, seg_off, T,
-            kold_of_kref, seg_cols=(jr_c, s_c, e_c), **missing)
-        p_new.aFend = a_end
-        p_new.dosageOffset = dos_off
-    else:
-        # without the C runtime: the segments and the panel materialised,
-        # the vote in numpy
-        if seg_cols is not None:
-            jr_c, s_c, e_c, seg_off = seg_cols
-            rows = np.stack([np.repeat(np.arange(T), np.diff(seg_off)), jr_c,
-                             s_c, e_c], axis=1).astype(np.int64)
-        segments = rows[np.lexsort((rows[:, 2], rows[:, 0]))]
-        _, Xref_nat, ref_freq = _reference_columns(p_ref)
-        x_all, dos_all, voted = _vote_all_sites(
-            segments, T, Xref_nat, kold_of_kref, ref_freq)
-        if self_impute:
-            miss = _missing_mask(p_ref)
-            n_conflicts = int((miss & ~voted).sum())
-            voted = voted & miss
-            x_all = np.where(miss, x_all, Xref_nat).astype(np.uint8)
-            dos_all = np.where(miss, dos_all, Xref_nat.astype(np.float64))
-        else:
-            n_conflicts = int((~voted).sum())
-        nvote, psums, xsums, pxsums = _vote_sums(voted, x_all, dos_all)
-        _emit_pbwt(p_new, x_all, dos_all)
+    # the whole core as one streaming C pass with O(Mref + T) live
+    # memory (the reference's cursor memory model); the segments are
+    # sorted by (target, start) in C, as the per-target scans require
+    # (the reference qsorts each target's list by start,
+    # pbwtImpute.c:1150-1159)
+    if seg_cols is None:
+        seg_cols = native.segs_sort(rows, T)
+    jr_c, s_c, e_c, seg_off = seg_cols
+    missing = {}
+    if self_impute:
+        missing = dict(zmiss=p_ref.zMissing, miss_off=(
+            p_ref.missingOffset if p_ref.missingOffset is not None
+            else np.zeros(Nref, np.int64)))
+    (p_new.yz, p_new.zDosage, p_new.dosageOffset, ref_freq, psums, xsums,
+     pxsums, nvote, n_conflicts, p_new.aFend) = native.impute_vote_emit(
+        p_ref.yz, p_ref.M, Nref, a_ref0, None, seg_off, T,
+        kold_of_kref, seg_cols=(jr_c, s_c, e_c), **missing)
     p_new.N = Nref
     p_new.invalidate()
     for k_ref in range(Nref):
@@ -652,22 +557,20 @@ def _genotype_compare_pbwt(p: PBWT, q: PBWT) -> None:
     fbound = np.asarray(F_BOUND)
 
     chunk = 1024
-    stream = native.get_lib() is not None and bool(p.yz) and bool(q.yz)
+    stream = bool(p.yz) and bool(q.yz)
     if stream and not is_dosage:
         # the whole counting pass in C at the reference's own loop cost
         ap0 = (p.aFstart if p.aFstart is not None
                else np.arange(M, dtype=np.int32))
         aq0 = (q.aFstart if q.aFstart is not None
                else np.arange(M, dtype=np.int32))
-        res = native.gtcompare_core(p.yz, q.yz, M, N, ap0, aq0, rf, ii,
-                                    fbound)
-        if res is not None:
-            n, ns9c, fsum, nsum, isum, ni = res
-            ns = np.zeros((p.M, 9), dtype=np.int64)
-            ns[0::2] = ns9c
-            _genotype_compare_report(p, is_ref_freq, is_dosage, n, ns,
-                                     fsum, nsum, isum, ni, nd, nd1)
-            return
+        n, ns9c, fsum, nsum, isum, ni = native.gtcompare_core(
+            p.yz, q.yz, M, N, ap0, aq0, rf, ii, fbound)
+        ns = np.zeros((p.M, 9), dtype=np.int64)
+        ns[0::2] = ns9c
+        _genotype_compare_report(p, is_ref_freq, is_dosage, n, ns,
+                                 fsum, nsum, isum, ni, nd, nd1)
+        return
     Xp_d = None if stream else p.haplotypes()
     Xq_d = None if stream else q.haplotypes()
     ap = (p.aFstart if p.aFstart is not None
@@ -801,16 +704,6 @@ def _genotype_compare_report(p, is_ref_freq, is_dosage, n, ns, fsum,
 # data corruption / simulation (pbwtImpute.c:1492-1619)
 # --------------------------------------------------------------------------
 
-def _corrupt_finish(p_new: PBWT, p_old: PBWT, u_new: engine.WriteCursor) -> PBWT:
-    """Adopt sites/chrom/samples from pOld exactly as the reference transfers
-    them (pbwtImpute.c:1530-1533)."""
-    p_new.yz = u_new.packed()
-    p_new.aFend = u_new.a.copy()
-    p_new.sites = p_old.sites
-    p_new.chrom = p_old.chrom
-    return p_new
-
-
 def corrupt_sites(p_old: PBWT, p_site: float, p_change: float) -> PBWT:
     """pbwtCorruptSites (pbwtImpute.c:1492-1537).
 
@@ -824,7 +717,6 @@ def corrupt_sites(p_old: PBWT, p_site: float, p_change: float) -> PBWT:
     if not (0 < p_site <= 1) or not (0 < p_change <= 1):
         raise ValueError(f"pSite {p_site}, pChange {p_change} out of range")
     M, N = p_old.M, p_old.N
-    rnd = crand.rand
     r_site = int(p_site * crand.RAND_MAX)
     r_change = int(p_change * crand.RAND_MAX)
     r_fac = crand.RAND_MAX / M
@@ -832,35 +724,13 @@ def corrupt_sites(p_old: PBWT, p_site: float, p_change: float) -> PBWT:
           else np.arange(M, dtype=np.int32))
     res = native.corrupt_sites_core(p_old.yz, M, N, a0,
                                     r_site, r_change, r_fac)
-    if res is not None:
-        p_new = PBWT(M, N)
-        p_new.yz, p_new.aFend, n_change = res
-        p_new.sites = p_old.sites
-        p_new.chrom = p_old.chrom
-        p_new.samples = p_old.samples
-        log(f"corruptSites with pSite {p_site:f}, pChange {p_change:f} "
-            f"changes {n_change / (N * M):.4f} of values")
-        return p_new
-    u_old = engine.ReadCursor.create(p_old, True, True)
-    u_new = engine.WriteCursor(M)
-    n_change = 0
-    for k in range(N):
-        x = u_old.x_natural()
-        y = x[u_new.a]
-        if rnd() < r_site:
-            thresh = u_old.c * r_fac
-            for i in range(M):
-                if rnd() < r_change:
-                    old = y[i]
-                    y[i] = 0 if rnd() < thresh else 1
-                    if y[i] != old:
-                        n_change += 1
-        u_new.write_forwards(y)
-        u_old.forwards_read()
-    p_new = _corrupt_finish(PBWT(M, N), p_old, u_new)
+    p_new = PBWT(M, N)
+    p_new.yz, p_new.aFend, n_change = res
+    p_new.sites = p_old.sites
+    p_new.chrom = p_old.chrom
     p_new.samples = p_old.samples
-    log(f"corruptSites with pSite {p_site:f}, pChange {p_change:f} changes "
-        f"{n_change / (N * M):.4f} of values")
+    log(f"corruptSites with pSite {p_site:f}, pChange {p_change:f} "
+        f"changes {n_change / (N * M):.4f} of values")
     return p_new
 
 
@@ -873,7 +743,6 @@ def corrupt_samples(p_old: PBWT, p_sample: float, p_change: float) -> PBWT:
     if not (0 < p_sample <= 1) or not (0 < p_change <= 1):
         raise ValueError(f"pSample {p_sample}, pChange {p_change} out of range")
     M, N = p_old.M, p_old.N
-    rnd = crand.rand
     r_sample = int(p_sample * crand.RAND_MAX)
     r_change = int(p_change * crand.RAND_MAX)
     r_fac = crand.RAND_MAX / M
@@ -881,35 +750,13 @@ def corrupt_samples(p_old: PBWT, p_sample: float, p_change: float) -> PBWT:
           else np.arange(M, dtype=np.int32))
     res = native.corrupt_samples_core(p_old.yz, M, N, a0,
                                       r_sample, r_change, r_fac)
-    if res is not None:
-        p_new = PBWT(M, N)
-        p_new.yz, p_new.aFend, n_change = res
-        p_new.sites = p_old.sites
-        p_new.chrom = p_old.chrom
-        p_new.samples = p_old.samples
-        log(f"corruptSamples with pSample {p_sample:f}, pChange "
-            f"{p_change:f} changes {n_change / (N * M):.4f} of values")
-        return p_new
-    u_old = engine.ReadCursor.create(p_old, True, True)
-    u_new = engine.WriteCursor(M)
-    is_corrupt = [rnd() < r_sample for _ in range(M)]
-    n_change = 0
-    for k in range(N):
-        x = u_old.x_natural()
-        y = x[u_new.a]
-        thresh = u_old.c * r_fac
-        for i in range(M):
-            if is_corrupt[i] and rnd() < r_change:
-                v = 0 if rnd() < thresh else 1
-                if v != y[i]:
-                    n_change += 1
-                y[i] = v
-        u_new.write_forwards(y)
-        u_old.forwards_read()
-    p_new = _corrupt_finish(PBWT(M, N), p_old, u_new)
+    p_new = PBWT(M, N)
+    p_new.yz, p_new.aFend, n_change = res
+    p_new.sites = p_old.sites
+    p_new.chrom = p_old.chrom
     p_new.samples = p_old.samples
-    log(f"corruptSamples with pSample {p_sample:f}, pChange {p_change:f} changes "
-        f"{n_change / (N * M):.4f} of values")
+    log(f"corruptSamples with pSample {p_sample:f}, pChange "
+        f"{p_change:f} changes {n_change / (N * M):.4f} of values")
     return p_new
 
 
@@ -925,33 +772,15 @@ def copy_samples(p_old: PBWT, m_new: int, mean_length: float) -> PBWT:
     if mean_length < 1.0:
         raise ValueError(f"meanLength {mean_length} must be > 1 in pbwtCopySamples")
     M_old, N = p_old.M, p_old.N
-    rnd = crand.rand
     r_switch = int(crand.RAND_MAX / mean_length)
     a0 = (p_old.aFstart if p_old.aFstart is not None
           else np.arange(M_old, dtype=np.int32))
     res = native.copy_samples_core(p_old.yz, M_old, N, a0, m_new, r_switch)
-    if res is not None:
-        p_new = PBWT(m_new, N)
-        p_new.yz, p_new.aFend, _ = res
-        p_new.sites = p_old.sites
-        p_new.chrom = p_old.chrom
-        p_new.samples = p_old.samples
-        log(f"copySamples made {m_new} samples with mean switch length "
-            f"{mean_length:.1f}")
-        return p_new
-    u_old = engine.ReadCursor.create(p_old, True, True)
-    u_new = engine.WriteCursor(m_new)
-    copy = np.array([rnd() % M_old for _ in range(m_new)], dtype=np.int64)
-    y = np.empty(m_new, dtype=np.uint8)
-    for k in range(N):
-        x_old = u_old.x_natural()
-        for j in range(m_new):
-            if rnd() < r_switch:
-                copy[j] = rnd() % M_old
-        y[:] = x_old[copy[u_new.a]]
-        u_new.write_forwards(y)
-        u_old.forwards_read()
-    p_new = _corrupt_finish(PBWT(m_new, N), p_old, u_new)
+    p_new = PBWT(m_new, N)
+    p_new.yz, p_new.aFend, _ = res
+    p_new.sites = p_old.sites
+    p_new.chrom = p_old.chrom
     p_new.samples = p_old.samples
-    log(f"copySamples made {m_new} samples with mean switch length {mean_length:.1f}")
+    log(f"copySamples made {m_new} samples with mean switch length "
+        f"{mean_length:.1f}")
     return p_new

@@ -3,9 +3,10 @@ query-vs-panel matching (-matchNaive on the host; -matchIndexed,
 -matchDynamic on the host and on the port's DeviceMatcher) (pbwtMatch.c).
 
 Counterpart of ``pbwt_tpu/algos/match.py``. The within-panel matchers are
-the host's C scans, with numpy routes without the C runtime; painting and
--imputeMissing collect their matches from them. For the query-vs-panel
-commands the host paths are the numpy and C ones; the device routes take
+the host's C scans; painting and -imputeMissing collect their matches from
+them. For the query-vs-panel commands the host paths are the numpy and C
+ones (-matchNaive and -matchIndexed in numpy, -matchDynamic's sweep in C);
+the device routes take
 their place when :func:`pbwt_tpu_torch.ops.device_requested` says so and
 the panel has more than DEVICE_MIN_M haplotypes. Device rows come back in
 the matcher's (site, query) order and are re-sorted into each command's
@@ -85,102 +86,25 @@ def _next_greater(d: np.ndarray, M: int) -> np.ndarray:
 
 
 def match_maximal_within(p: PBWT, report) -> None:
-    """Algorithm 4 (matchMaximalWithin, pbwtMatch.c:115-142).
-
-    Native C fast path when available; otherwise per site the up/down
-    neighbour scans are resolved with vectorised previous/next-greater
-    bounds plus prefix allele counts.
-    """
+    """Algorithm 4 (matchMaximalWithin, pbwtMatch.c:115-142), the C scan's
+    reports in its order."""
     a0 = p.aFstart if p.aFstart is not None else np.arange(p.M, dtype=np.int32)
-    # stream the pack3 bytes directly (O(M) live memory); fall back to the
-    # decoded matrix only when the packed stream is absent
+    # stream the pack3 bytes directly (O(M) live memory); the decoded
+    # matrix only when the packed stream is absent
     rows = (native.max_within_packed(p.yz, p.M, p.N, a0) if p.yz
             else native.max_within(p.decoded(True), a0))
-    if rows is not None:
-        for ai, bi, s, e in rows.tolist():
-            report(ai, bi, s, e)
-        return
-    Y = p.decoded(True)
-    M, N = p.M, p.N
-    a = (p.aFstart if p.aFstart is not None else np.arange(M, dtype=np.int32)).copy()
-    d = np.zeros(M + 1, dtype=np.int32)
-    d[0] = 1
-    d[M] = 1
-    y_end = np.zeros(M, dtype=np.uint8)   # y at k == N is undefined; block rule k<N applies
-    for k in range(N + 1):
-        y = Y[k] if k < N else y_end
-        dm = d
-        # bounds
-        g = _prev_greater(dm, M)           # scan range up: [g[i], i-1]
-        h = _next_greater(dm, M)           # scan range down: [i+1, h[i]-1]
-        # prefix counts of alleles for block-allele tests
-        c1 = np.zeros(M + 1, dtype=np.int64)
-        np.cumsum(y != 0, out=c1[1:])
-        c0 = np.arange(M + 1) - c1
-        up_applicable = dm[:M] <= dm[1:M + 1]
-        down_applicable = dm[:M] >= dm[1:M + 1]
-        for i in range(M):
-            lo = g[i]
-            hi = h[i]
-            yi = y[i]
-            if k < N:
-                if up_applicable[i] and i > lo:
-                    cnt = (c1[i] - c1[lo]) if yi else (c0[i] - c0[lo])
-                    if cnt > 0:
-                        continue
-                if down_applicable[i] and hi > i + 1:
-                    cnt = (c1[hi] - c1[i + 1]) if yi else (c0[hi] - c0[i + 1])
-                    if cnt > 0:
-                        continue
-            if up_applicable[i]:
-                for j in range(lo, i):
-                    report(int(a[i]), int(a[j]), int(dm[i]), k)
-            if down_applicable[i]:
-                for j in range(i + 1, hi):
-                    report(int(a[i]), int(a[j]), int(dm[i + 1]), k)
-        if k < N:
-            a, d = engine.forwards_ad(a, d, y, k)
+    for ai, bi, s, e in rows.tolist():
+        report(ai, bi, s, e)
 
 
 def match_long_within(p: PBWT, T: int, report) -> None:
-    """Algorithm 3 variant with starts (matchLongWithin2, pbwtMatch.c:85-113)."""
+    """Algorithm 3 variant with starts (matchLongWithin2, pbwtMatch.c:85-113),
+    the C scan's reports in its order."""
     a0 = p.aFstart if p.aFstart is not None else np.arange(p.M, dtype=np.int32)
     rows = (native.long_within_packed(p.yz, T, p.M, p.N, a0) if p.yz
             else native.long_within(p.decoded(True), T, a0))
-    if rows is not None:
-        for ai, bi, s, e in rows.tolist():
-            report(ai, bi, s, e)
-        return
-    Y = p.decoded(True)
-    M, N = p.M, p.N
-    a = (p.aFstart if p.aFstart is not None else np.arange(M, dtype=np.int32)).copy()
-    d = np.zeros(M + 1, dtype=np.int32)
-    d[0] = 1
-    d[M] = 1
-    for k in range(N + 1):
-        # at k == N the reference cursor still holds the LAST column's values
-        # (the read past the end leaves y stale), and the final flush compares
-        # alleles against it (matchLongWithin2 has no k<N guard on y)
-        y = Y[min(k, N - 1)]
-        i0, na, nb = 0, 0, 0
-        for i in range(M):
-            if d[i] > k - T:
-                if na and nb:
-                    for ia in range(i0, i):
-                        dmin = 0
-                        for ib in range(ia + 1, i):
-                            if d[ib] > dmin:
-                                dmin = int(d[ib])
-                            if y[ib] != y[ia]:
-                                report(int(a[ia]), int(a[ib]), dmin, k)
-                na = nb = 0
-                i0 = i
-            if y[i] == 0:
-                na += 1
-            else:
-                nb += 1
-        if k < N:
-            a, d = engine.forwards_ad(a, d, y, k)
+    for ai, bi, s, e in rows.tolist():
+        report(ai, bi, s, e)
 
 
 def max_within_length_hist(p: PBWT) -> dict[int, int]:
@@ -259,17 +183,18 @@ def long_matches(p: PBWT, L: int) -> None:
         sys.stdout.flush()
         fd = native._stdout_fd(sys.stdout)
         if fd >= 0:
-            n = (native.long_within_print(p.yz, L, p.M, p.N, a0, fd) if L
-                 else native.max_within_print(p.yz, p.M, p.N, a0, fd))
-            if n is not None:
-                return
+            if L:
+                native.long_within_print(p.yz, L, p.M, p.N, a0, fd)
+            else:
+                native.max_within_print(p.yz, p.M, p.N, a0, fd)
+            return
         binout = getattr(sys.stdout, "buffer", None)
         if binout is not None:
             rows = (native.long_within_packed(p.yz, L, p.M, p.N, a0) if L
                     else native.max_within_packed(p.yz, p.M, p.N, a0))
-            if rows is not None and native.write_match_rows(rows, binout):
-                binout.flush()
-                return
+            native.write_match_rows(rows, binout)
+            binout.flush()
+            return
 
     if L:
         match_long_within(p, L, report)
@@ -300,9 +225,9 @@ def _report_rows(rows: np.ndarray, report) -> None:
     binout = getattr(sys.stdout, "buffer", None)
     if report is report_match_stdout and binout is not None:
         sys.stdout.flush()
-        if native.write_match_rows(rows, binout):
-            binout.flush()
-            return
+        native.write_match_rows(rows, binout)
+        binout.flush()
+        return
     for a, b, s, e in rows.tolist():
         report(a, b, s, e)
 
@@ -443,9 +368,8 @@ def match_sequences_indexed(p: PBWT, q: PBWT, report=report_match_stdout,
 
 
 def match_sequences_sweep_rows(p: PBWT, q: PBWT):
-    """The native sweep's match set as an (n, 4) int64 ndarray
-    [iq, j_panel, start, end] in report order, or None when the native
-    engine is unavailable (callers fall back to the callback sweep).
+    """The C sweep's match set as an (n, 4) int64 ndarray
+    [iq, j_panel, start, end] in report order.
 
     Logs the same summary line as match_sequences_sweep
     (pbwtMatch.c:443-445) so pipeline stderr is unchanged."""
@@ -458,8 +382,6 @@ def match_sequences_sweep_rows(p: PBWT, q: PBWT):
         rows = native.sweep_match_packed(p.yz, M, q.yz, QM, N, ap0, aq0)
     else:
         rows = native.sweep_match(p.decoded(True), ap0, q.decoded(True), aq0)
-    if rows is None:
-        return None
     log_best_matches(rows, QM, N)
     return rows
 
@@ -515,127 +437,19 @@ def match_sequences_sweep(p: PBWT, q: PBWT, report, device=None) -> None:
         sys.stdout.flush()
         fd = native._stdout_fd(sys.stdout)
         if fd >= 0:
-            st = native.sweep_match_print(p.yz, M, q.yz, QM, N, ap0, aq0, fd)
-            if st is not None:
-                n_rep, tot_len, nz = st
-                log(f"Average number of best matches including alternates "
-                    f"{n_rep / QM:.1f}, Average length "
-                    f"{tot_len / max(nz, 1):.1f}, Av number per position "
-                    f"{tot_len / (QM * N):.1f}")
-                return
+            n_rep, tot_len, nz = native.sweep_match_print(
+                p.yz, M, q.yz, QM, N, ap0, aq0, fd)
+            log(f"Average number of best matches including alternates "
+                f"{n_rep / QM:.1f}, Average length "
+                f"{tot_len / max(nz, 1):.1f}, Av number per position "
+                f"{tot_len / (QM * N):.1f}")
+            return
     if p.yz and q.yz:
         rows = native.sweep_match_packed(p.yz, M, q.yz, QM, N, ap0, aq0)
     else:
         rows = native.sweep_match(p.decoded(True), ap0, q.decoded(True), aq0)
-    if rows is not None:
-        _report_rows(rows, report)
-        nz = rows[rows[:, 2] != rows[:, 3]]
-        tot_len = int((nz[:, 3] - nz[:, 2]).sum())
-        log(f"Average number of best matches including alternates "
-            f"{len(rows) / QM:.1f}, Average length "
-            f"{tot_len / max(len(nz), 1):.1f}, Av number per position "
-            f"{tot_len / (QM * N):.1f}")
-        return
-
-    Yp = p.decoded(True)
-    Yq = q.decoded(True)
-    up_a = ap0.copy()
-    up_d = np.zeros(M + 1, dtype=np.int32)
-    up_d[0] = 1
-    up_d[M] = 1
-    uq_a = (q.aFstart if q.aFstart is not None else np.arange(QM, dtype=np.int32)).copy()
-    f = np.zeros(QM, dtype=np.int64)
-    d = np.zeros(QM, dtype=np.int64)
-    n_tot, tot_len = 0, 0
-
-    for k in range(N):
-        yp = Yp[k]
-        yq = Yq[k]
-        dm = up_d
-        for j in range(QM):
-            jj = int(uq_a[j])
-            x = int(yq[j])
-            fj = int(f[jj])
-            if yp[fj] == x:
-                continue
-            # the current match ends here: try same-length extension first
-            i_plus = fj
-            extended = False
-            while True:
-                i_plus += 1
-                if i_plus >= M or dm[i_plus] > d[jj]:
-                    break
-                if yp[i_plus] == x:
-                    f[jj] = i_plus
-                    extended = True
-                    break
-            if extended:
-                continue
-            # report matches [f[jj], i_plus)
-            for i in range(fj, i_plus):
-                report(jj, int(up_a[i]), int(d[jj]), k)
-            n_tot += i_plus - fj
-            tot_len += (k - int(d[jj])) * (i_plus - fj)
-            # find new best match by widening [i_minus, i_plus]
-            i_minus = fj
-            d_plus = int(dm[i_plus]) if i_plus < M else k
-            d_minus = int(dm[i_minus])
-            while True:
-                if d_minus <= d_plus:
-                    i = -1
-                    while dm[i_minus] <= d_minus:   # d[0] = k+1 prevents underflow
-                        i_minus -= 1
-                        if yp[i_minus] == x:
-                            i = i_minus
-                    if i >= 0:
-                        f[jj] = i
-                        d[jj] = d_minus
-                        break
-                    d_minus = int(dm[i_minus])
-                else:
-                    found = False
-                    while i_plus < M and dm[i_plus] <= d_plus:
-                        if yp[i_plus] == x:
-                            f[jj] = i_plus
-                            d[jj] = d_plus
-                            found = True
-                            break
-                        i_plus += 1
-                    if found:
-                        break
-                    d_plus = k if i_plus == M else int(dm[i_plus])
-                    if i_minus == 0 and i_plus == M:
-                        log(f"no match to query {jj} value {x} at site {k}")
-                        d[jj] = k + 1
-                        break
-        # vectorised FM-step of all query pointers
-        u, c = engine.calculate_u(yp)
-        xq = np.zeros(QM, dtype=np.uint8)
-        xq[uq_a] = yq                     # query values in natural order? no:
-        # mirror reference exactly: f[jj] updated using uq order
-        jjs = uq_a.astype(np.int64)
-        fs = f[jjs]
-        xs = yq.astype(np.int64)
-        newf = np.where(xs != 0, c + fs - u[fs], u[fs])
-        newf = np.where(newf == M, 0, newf)   # trap (pbwtMatch.c:421-422)
-        f[jjs] = newf
-        up_a, up_d = engine.forwards_ad(up_a, up_d, yp, k)
-        uq_a = engine.forwards_a(uq_a, yq)
-
-    # record matches ending at N (pbwtMatch.c:430-436)
-    for j in range(QM):
-        jj = int(uq_a[j])
-        report(jj, int(up_a[f[jj]]), int(d[jj]), N)
-        i = int(f[jj]) + 1
-        while i < M and up_d[i] <= d[jj]:
-            report(jj, int(up_a[i]), int(d[jj]), N)
-            i += 1
-        n_tot += i - int(f[jj])
-        tot_len += (N - int(d[jj])) * (i - int(f[jj]))
-
-    log(f"Average number of best matches including alternates {n_tot / QM:.1f}, "
-        f"Average length {tot_len / n_tot:.1f}, "
-        f"Av number per position {tot_len / (QM * N):.1f}")
+    _report_rows(rows, report)
+    log_best_matches(rows, QM, N)
 
 
 def match_sequences_dynamic(p: PBWT, fp, device=None) -> None:

@@ -1,13 +1,13 @@
 """Multi-PBWT merge (pbwtMerge.c): synced positional walk over k pbwts,
 keeping only sites present in every file, concatenating haplotype columns
-and re-PBWTing the union panel.  Streaming: each input holds one decoded
-block at a time (pbwtMerge.c:78-127 keeps one column per reader)."""
+and re-PBWTing the union panel in one streaming C pass, which holds one
+column of each input at a time, as pbwtMerge.c:78-127 does."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..core import engine, native, registry
+from ..core import native, registry
 from ..core.pbwt import PBWT, Site
 from ..io import pbwtfile
 from ..utils import log
@@ -94,52 +94,8 @@ def merge(filenames: list[str]) -> PBWT:
     n_emit = out.N
     a0s = [(p.aFstart if p.aFstart is not None
             else np.arange(p.M, dtype=np.int32)) for p in pbwts]
-    res = native.merge_core([p.yz for p in pbwts], [p.M for p in pbwts],
-                            a0s, [np.asarray(a, np.uint8) for a in acts],
-                            n_emit)
-    if res is not None:
-        out.yz, out.aFend = res
-    else:
-        # portable fallback: replay the action plan through streaming
-        # python readers
-        u = engine.WriteCursor(nhaps)
-        readers = [_NaturalColumns(p) for p in pbwts]
-        ptr = [0] * n
-        for _ in range(n_emit):
-            segs = []
-            for i in range(n):
-                while not acts[i][ptr[i]]:
-                    readers[i].next()
-                    ptr[i] += 1
-                segs.append(readers[i].next().copy())
-                ptr[i] += 1
-            u.write_natural(np.concatenate(segs))
-        out.yz = u.packed()
-        out.aFend = u.a.copy()
+    out.yz, out.aFend = native.merge_core(
+        [p.yz for p in pbwts], [p.M for p in pbwts], a0s,
+        [np.asarray(a, np.uint8) for a in acts], n_emit)
     log(f"merged {len(pbwts)} pbwts: M, N are {out.M}, {out.N}")
     return out
-
-
-class _NaturalColumns:
-    """Sequential natural-order column reader over a packed PBWT - one
-    block of sorted columns live at a time (the reference's synced
-    positional reader, pbwtMerge.c:9-127, keeps one column per file)."""
-
-    def __init__(self, p: PBWT, block: int = 1024):
-        self.p = p
-        self.a = (p.aFstart if p.aFstart is not None
-                  else np.arange(p.M, dtype=np.int32)).copy()
-        self._gen = p.stream_sorted(block)
-        self._buf = None
-        self._off = 0
-        self._x = np.empty(p.M, dtype=np.uint8)
-
-    def next(self) -> np.ndarray:
-        if self._buf is None or self._off >= self._buf.shape[0]:
-            _, self._buf = next(self._gen)
-            self._off = 0
-        y = self._buf[self._off]
-        self._off += 1
-        self._x[self.a] = y
-        self.a = engine.forwards_a(self.a, y)
-        return self._x

@@ -8,8 +8,8 @@ streaming variant (Yang et al., Nat Comms 16:2742, 2025). The matches are
 collected on the host (the C scan into per-recipient buckets); the dense
 tables are accumulated by kernel K6 on the device engine when
 :func:`pbwt_tpu_torch.ops.device_requested` says so, else by the host C
-pass, or by the reference's loop without the C runtime (and always for
-``outputlocal``). K6 and the C pass give the same bits. -paintSparse takes
+pass; ``outputlocal`` takes the reference's loop, which writes the
+local-ancestry file. K6 and the C pass give the same bits. -paintSparse takes
 the per-individual C pass and writes its five streams through zlib as
 zlib's ``gzopen("w6")`` does (:class:`_GzipStream`), byte for byte.
 """
@@ -28,6 +28,8 @@ from . import match as matchmod
 
 
 def _collect_matches(p: PBWT):
+    """Each haplotype's maximal within-panel matches as (jRef, start, end)
+    lists in report order, for the reference's loop."""
     max_match: list[list[tuple[int, int, int]]] = [[] for _ in range(p.M)]
     matchmod.match_maximal_within(
         p, lambda ai, bi, s, e: max_match[ai].append((bi, s, e)))
@@ -36,43 +38,23 @@ def _collect_matches(p: PBWT):
 
 def _collect_match_arrays(p: PBWT):
     """Flattened per-hap match segments (seg_j, seg_s, seg_e, seg_off) in
-    the reference's per-recipient report order, without Python lists."""
+    the reference's per-recipient report order, without Python lists: the
+    C scan straight into per-recipient buckets, or, for a panel without
+    pack3 bytes, its rows bucketed in C."""
     a0 = (p.aFstart if p.aFstart is not None
           else np.arange(p.M, dtype=np.int32))
     if p.yz:
-        bucketed = native.max_within_bucketed(p.yz, p.M, p.N, a0)
-        if bucketed is not None:
-            return bucketed
-    rows = (native.max_within_packed(p.yz, p.M, p.N, a0) if p.yz
-            else native.max_within(p.decoded(True), a0))
-    if rows is None:
-        mm = _collect_matches(p)
-        segs = [(j, jr, s, e) for j, lst in enumerate(mm)
-                for (jr, s, e) in lst]
-        rows = (np.asarray(segs, np.int64) if segs
-                else np.zeros((0, 4), np.int64))
-    else:
-        lib = native.get_lib()
-        if len(rows):
-            # C counting sort by recipient: one pass over the int64 rows
-            n = len(rows)
-            sj = native.pooled_view((n,), np.int32, "paint:sj")
-            ss = native.pooled_view((n,), np.int32, "paint:ss")
-            se = native.pooled_view((n,), np.int32, "paint:se")
-            seg_off = np.zeros(p.M + 1, np.int64)
-            lib.bucket_rows(np.ascontiguousarray(rows.reshape(-1)), n, p.M,
-                            sj, ss, se, seg_off)
-            return sj, ss, se, seg_off
-    order = np.argsort(rows[:, 0], kind="stable")
-    rows = rows[order]
-    counts = np.bincount(rows[:, 0], minlength=p.M) if len(rows) \
-        else np.zeros(p.M, np.int64)
+        return native.max_within_bucketed(p.yz, p.M, p.N, a0)
+    rows = native.max_within(p.decoded(True), a0)
+    # C counting sort by recipient: one pass over the int64 rows
+    n = len(rows)
+    sj = native.pooled_view((n,), np.int32, "paint:sj")
+    ss = native.pooled_view((n,), np.int32, "paint:ss")
+    se = native.pooled_view((n,), np.int32, "paint:se")
     seg_off = np.zeros(p.M + 1, np.int64)
-    np.cumsum(counts, out=seg_off[1:])
-    return (np.ascontiguousarray(rows[:, 1], np.int32),
-            np.ascontiguousarray(rows[:, 2], np.int32),
-            np.ascontiguousarray(rows[:, 3], np.int32),
-            seg_off)
+    native.get_lib().bucket_rows(np.ascontiguousarray(rows.reshape(-1)), n,
+                                 p.M, sj, ss, se, seg_off)
+    return sj, ss, se, seg_off
 
 
 def _paint_device(p: PBWT, chunksperregion: int, ploidy: int, device=None):
@@ -98,16 +80,15 @@ def paint_ancestry_matrix(p: PBWT, file_root: str, chunksperregion: int = 100,
     _check_ploidy(p, ploidy)
     n_inds = p.M // ploidy
     map_ih = np.arange(p.M) // ploidy
-    lib = native.get_lib()
     if not outputlocal and device_requested():
         counts, totlengths, counts2, counts3, nregions = _paint_device(
             p, chunksperregion, ploidy, device)
-    elif lib is not None and not outputlocal:
+    elif not outputlocal:
         counts, totlengths, counts2, counts3 = (np.zeros((n_inds, n_inds))
                                                 for _ in range(4))
         nregions = np.zeros(n_inds)
         sj, ss, se, seg_off = _collect_match_arrays(p)
-        lib.paint_accumulate(
+        native.get_lib().paint_accumulate(
             sj, ss, se, seg_off, p.M, p.N, n_inds, ploidy, chunksperregion,
             -1.0, counts.reshape(-1), counts2.reshape(-1),
             counts3.reshape(-1), totlengths.reshape(-1), nregions,
@@ -210,13 +191,10 @@ def _write_tables(file_root: str, counts, totlengths, counts2, counts3,
             f.write(f" IND{i + 1}")
     for f in (fc, fl, fc2, fc3):
         f.write("\n")
-    # all four tables formatted in four native calls
-    rows = [native.format_f4_rows(t)
-            for t in (counts, totlengths, counts2, counts3)]
-    if rows[0] is None:
-        rows = [[" ".join([""] + [f"{v:.4f}" for v in r]) for r in t]
-                for t in (counts, totlengths, counts2, counts3)]
-    rows_c, rows_l, rows_2, rows_3 = rows
+    # all four tables formatted in four C calls
+    rows_c, rows_l, rows_2, rows_3 = (
+        native.format_f4_rows(t) for t in (counts, totlengths, counts2,
+                                           counts3))
     for i in range(n_inds):
         fc3.write(f"IND{i + 1} {nregions[i]:.2f}")
         fc2.write(f"IND{i + 1} {nregions[i]:.2f}")
@@ -259,7 +237,6 @@ def paint_ancestry_matrix_sparse(p: PBWT, file_root: str,
     sparse rows to gzipped .s.out.gz files with a match-length cutoff."""
     _check_ploidy(p, ploidy)
     n_inds = p.M // ploidy
-    map_ih = np.arange(p.M) // ploidy
     nregions = np.zeros(n_inds)
 
     fr, fc, fl, fc2, fc3 = (_GzipStream(f"{file_root}.{t}.s.out.gz") for t in (
@@ -285,90 +262,30 @@ def paint_ancestry_matrix_sparse(p: PBWT, file_root: str,
     t_counts2 = np.zeros(n_inds)
     t_counts3 = np.zeros(n_inds)
     t_totlengths = np.zeros(n_inds)
-    indsum = 0.0
 
     lib = native.get_lib()
-    if lib is not None:
-        sj, ss, se, seg_off = _collect_match_arrays(p)
-        nreg1 = np.zeros(1)
-        ind1 = np.zeros(1)
-        for ii in range(n_inds):
-            part_counts[:] = 0.0
-            t_counts[:] = 0.0
-            t_counts2[:] = 0.0
-            t_counts3[:] = 0.0
-            t_totlengths[:] = 0.0
-            nreg1[0] = 0.0
-            ind1[0] = 0.0
-            lib.paint_sparse_ind(sj, ss, se, seg_off, ii * ploidy,
-                                 (ii + 1) * ploidy, p.N, n_inds, ploidy,
-                                 chunksperregion, float(cutoff),
-                                 t_counts, t_counts2, t_counts3,
-                                 t_totlengths, nreg1, part_counts, ind1)
-            nregions[ii] = nreg1[0]
-            nz = t_totlengths != 0
-            if ind1[0]:
-                t_totlengths[nz] = (t_totlengths[nz] / ind1[0]
-                                    * p.N * ploidy)
-            print_all(ii, t_counts, t_counts2, t_counts3, t_totlengths,
-                      nregions[ii])
-        for f in (fc, fl, fc2, fc3, fr):
-            f.close()
-        return
-
-    max_match = _collect_matches(p)
-    for i in range(p.M):
-        mm = max_match[i]
-        if not mm:
-            mm = [(i, 0, 0)]
-        m1 = 0
-        n1 = 1
-        m_stop = len(mm) - 1
-        me = map_ih[i]
-        if i == 0 or map_ih[i] != map_ih[i - 1]:
-            if i > 0:
-                print_all(map_ih[i - 1], t_counts, t_counts2, t_counts3,
-                          t_totlengths, nregions[map_ih[i - 1]])
-            part_counts[:] = 0.0
-            t_counts[:] = 0.0
-            t_counts2[:] = 0.0
-            t_counts3[:] = 0.0
-            t_totlengths[:] = 0.0
-        for k in range(1, p.N):
-            while mm[m1][2] <= k and m1 < m_stop:
-                if n1 % chunksperregion == 0:
-                    nz = part_counts != 0
-                    nz[me] = False
-                    t_counts2[nz] += part_counts[nz] ** 2
-                    t_counts3[nz] += part_counts[nz]
-                    part_counts[:] = 0.0
-                    nregions[me] += 1.0
-                m1 += 1
-                n1 += 1
-            ssum = 0.0
-            mlist = []
-            m = m1
-            while m <= m_stop and mm[m][1] < k:
-                jm, sm, em = mm[m]
-                if map_ih[jm] != me and (em - sm) > cutoff:
-                    mlist.append((jm, sm, em))
-                    ssum += (k - sm) * (em - k)
-                m += 1
-            if ssum:
-                for jm, sm, em in mlist:
-                    w = (k - sm) * (em - k) / ssum
-                    t_totlengths[map_ih[jm]] += w
-                    thiscount = w / (em - sm)
-                    t_counts[map_ih[jm]] += thiscount
-                    part_counts[map_ih[jm]] += thiscount
-                indsum += 1.0
-        if i % ploidy == ploidy - 1:
-            nz = t_totlengths != 0
-            if indsum:
-                t_totlengths[nz] = t_totlengths[nz] / indsum * p.N * ploidy
-            indsum = 0.0
-
-    print_all(map_ih[p.M - 1], t_counts, t_counts2, t_counts3, t_totlengths,
-              nregions[map_ih[p.M - 1]])
+    sj, ss, se, seg_off = _collect_match_arrays(p)
+    nreg1 = np.zeros(1)
+    ind1 = np.zeros(1)
+    for ii in range(n_inds):
+        part_counts[:] = 0.0
+        t_counts[:] = 0.0
+        t_counts2[:] = 0.0
+        t_counts3[:] = 0.0
+        t_totlengths[:] = 0.0
+        nreg1[0] = 0.0
+        ind1[0] = 0.0
+        lib.paint_sparse_ind(sj, ss, se, seg_off, ii * ploidy,
+                             (ii + 1) * ploidy, p.N, n_inds, ploidy,
+                             chunksperregion, float(cutoff),
+                             t_counts, t_counts2, t_counts3,
+                             t_totlengths, nreg1, part_counts, ind1)
+        nregions[ii] = nreg1[0]
+        nz = t_totlengths != 0
+        if ind1[0]:
+            t_totlengths[nz] = (t_totlengths[nz] / ind1[0]
+                                * p.N * ploidy)
+        print_all(ii, t_counts, t_counts2, t_counts3, t_totlengths,
+                  nregions[ii])
     for f in (fc, fl, fc2, fc3, fr):
         f.close()

@@ -24,17 +24,15 @@ def phase_compare(p: PBWT, q: PBWT) -> None:
     if M % 2:
         raise ValueError(f"phaseCompare requires that M {M} is even")
     from ..core import native
-    res = None
     if p.yz and q.yz:
         # the whole per-pair switch scan as one streaming C pass
         ap0 = (p.aFstart if p.aFstart is not None
                else np.arange(M, dtype=np.int32))
         aq0 = (q.aFstart if q.aFstart is not None
                else np.arange(M, dtype=np.int32))
-        res = native.phase_compare_core(p.yz, q.yz, M, N, ap0, aq0)
-    if res is not None:
         (n_switch, n_het, n_switch1, n_switch5, n_switch_sample,
-         n_switch_site) = res
+         n_switch_site) = native.phase_compare_core(p.yz, q.yz, M, N, ap0,
+                                                    aq0)
         m_fac = 2.0 / M
         log(f"{m_fac * n_switch:.1f} switches per sample, "
             f"{n_switch / n_het if n_het else 0.0:.3f} per het, "
@@ -124,29 +122,6 @@ class _SweepCursor:
         self.b[self.a] = np.arange(self.M, dtype=np.int32)
 
 
-def _score0(cur, xp: np.ndarray, i: int) -> float:
-    """score0 (pbwtImpute.c:260-267): sum of phased values of the sort-order
-    neighbours of haplotype i."""
-    ubi = cur.b[i]
-    s = 0.0
-    if ubi > 0:
-        s += xp[cur.a[ubi - 1]]
-    if ubi < cur.M - 1:
-        s += xp[cur.a[ubi + 1]]
-    return s
-
-
-def _score1(cur, xp: np.ndarray, i: int, k: int, score_bit) -> float:
-    """score1 (pbwtImpute.c:269-276): length-weighted neighbour votes."""
-    ubi = cur.b[i]
-    s = 0.0
-    if ubi > 0:
-        s += xp[cur.a[ubi - 1]] * score_bit[(k + 1) - cur.d[ubi]]
-    if ubi < cur.M - 1:
-        s += xp[cur.a[ubi + 1]] * score_bit[(k + 1) - cur.d[ubi + 1]]
-    return s
-
-
 def phase_sweep(p: PBWT, ref: PBWT | None, is_start: bool,
                 r: PBWT | None, n_sparse: int, score_bit) -> PBWT:
     """phaseSweep (pbwtImpute.c:288-372).
@@ -158,28 +133,25 @@ def phase_sweep(p: PBWT, ref: PBWT | None, is_start: bool,
     if ref is not None and p.M > ref.M:
         raise ValueError("phaseSweep requires ref->M >= p->M")
 
-    if (ref is None and p.yz and native.get_lib() is not None
+    if (ref is None and p.yz
             and (r is None or (r.yz and r.aFend is not None
                                and r.aRend is not None))):
-        # one streaming C pass for the whole sweep (phase_sweep_core);
-        # pinned against the python path below by tests
+        # one streaming C pass for the whole sweep (phase_sweep_core)
         ap0 = ((p.aFstart if p.aFstart is not None
                 else np.arange(M, dtype=np.int32)) if is_start else p.aFend)
         if ap0 is not None:
             thresh = 2 * (n_sparse + (2 if r is not None else 1)) + 0.5
-            res = native.phase_sweep_core(
+            q = PBWT(M, N)
+            if r is not None:
+                q.aFstart = r.aFend.copy()
+            q.yz, q.aFend, q.aRend = native.phase_sweep_core(
                 p.yz, M, N, ap0, is_start,
                 r.yz if r is not None else None,
                 r.aFend if r is not None else None,
                 r.aRend if r is not None else None,
                 r.aFend if r is not None else None,
                 n_sparse, score_bit, thresh)
-            if res is not None:
-                q = PBWT(M, N)
-                if r is not None:
-                    q.aFstart = r.aFend.copy()
-                q.yz, q.aFend, q.aRend = res
-                return q
+            return q
 
     Y = p.decoded(True)
     # forward/backward reader over p
@@ -204,7 +176,8 @@ def phase_sweep(p: PBWT, ref: PBWT | None, is_start: bool,
     uqq = [_SweepCursor(M) for _ in range(n_sparse)]
 
     class _RC:
-        """read-cursor adaptor with a/b for score0 on the reverse pbwt"""
+        """read-cursor adaptor with a/b for the neighbour tables on the
+        reverse pbwt"""
         def __init__(self, cur, binv):
             self.cur = cur
             self.b = binv
@@ -231,17 +204,14 @@ def phase_sweep(p: PBWT, ref: PBWT | None, is_start: bool,
         hets = np.flatnonzero(x[0::2] != x[1::2]) * 2
         xp[hets] = 0.0
         xp[hets + 1] = 0.0
-        n2 = len(hets)
         thresh = 0.5 if ref is not None else 2 * (n_sparse + (2 if r is not None else 1)) + 0.5
-        lib = native.get_lib()
-        if lib is not None and n2:
+        if len(hets):
             # neighbour tables per cursor: hap ids of the sort-order
             # neighbours and the score1 length weights (exact reference
             # summation order is preserved inside phase_resolve)
             sc1 = [(uq, k)] + [(uqq[j], k // n_sparse)
                                for j in range(n_sparse)]
             curs = sc1 + ([(urw, None)] if urw is not None else [])
-            idx = np.arange(M, dtype=np.int32)
             aLs, aRs, wLs, wRs = [], [], [], []
             for c, kc in curs:
                 pos = c.b
@@ -254,42 +224,12 @@ def phase_sweep(p: PBWT, ref: PBWT | None, is_start: bool,
                     d = c.d
                     wLs.append(score_bit[(kc + 1) - d[pos]])
                     wRs.append(score_bit[(kc + 1) - d[pos + 1]])
-            lib.phase_resolve(
+            native.get_lib().phase_resolve(
                 xp, M, len(curs), len(sc1),
                 np.ascontiguousarray(np.stack(aLs)),
                 np.ascontiguousarray(np.stack(aRs)),
                 np.ascontiguousarray(np.stack(wLs)),
                 np.ascontiguousarray(np.stack(wRs)), thresh)
-            n2 = 0
-        while n2 and thresh > 1.0:
-            n2_old = n2
-            n2 = 0
-            for i in range(0, M, 2):
-                if xp[i] == 0.0:
-                    s = _score0(uq, xp, i) - _score0(uq, xp, i + 1)
-                    if urw is not None:
-                        s += _score0(urw, xp, i) - _score0(urw, xp, i + 1)
-                    for cur in uqq:
-                        s += _score0(cur, xp, i) - _score0(cur, xp, i + 1)
-                    if s > thresh:
-                        xp[i], xp[i + 1] = 1, -1
-                    elif s < -thresh:
-                        xp[i], xp[i + 1] = -1, 1
-                    else:
-                        n2 += 1
-            if n2 == n2_old:
-                thresh -= 1.0
-        if n2:
-            for i in range(0, M, 2):
-                if xp[i] == 0.0:
-                    s = _score1(uq, xp, i, k, score_bit) - _score1(uq, xp, i + 1, k, score_bit)
-                    for cur in uqq:
-                        s += (_score1(cur, xp, i, k // n_sparse, score_bit)
-                              - _score1(cur, xp, i + 1, k // n_sparse, score_bit))
-                    if s > 0:
-                        xp[i], xp[i + 1] = 1, -1
-                    else:
-                        xp[i], xp[i + 1] = -1, 1
         x2 = (xp > 0.0).astype(np.uint8)
         uq.write_ad(x2, k)
         kk = k % n_sparse
@@ -330,27 +270,6 @@ def phase(p: PBWT, n_sparse: int) -> PBWT:
 # reference phasing (referencePhase4, EXTEND4)
 # --------------------------------------------------------------------------
 
-def _suffix_stop_max(d: np.ndarray, y: np.ndarray, x: int, M: int) -> np.ndarray:
-    """BP_x[i] = max(d[i..j-1]) where j = first index >= i with y[j] == x
-    (i.e. the divergence accumulated by pbwtCursorMapDplus before it stops);
-    -1 when y[i] == x (no accumulation).  BP_x[M] = -1."""
-    bp = np.full(M + 1, -1, dtype=np.int64)
-    for i in range(M - 1, -1, -1):
-        if y[i] != x:
-            bp[i] = max(int(d[i]), bp[i + 1]) if bp[i + 1] >= 0 else int(d[i])
-    return bp
-
-
-def _prefix_stop_max(d: np.ndarray, y: np.ndarray, x: int, M: int) -> np.ndarray:
-    """BM_x[i] = max accumulated by pbwtCursorMapDminus scanning i-1 down to
-    (exclusive) the previous index with y == x; -1 when nothing scanned."""
-    bm = np.full(M + 1, -1, dtype=np.int64)
-    for i in range(1, M + 1):
-        if y[i - 1] != x:
-            bm[i] = max(int(d[i - 1]), bm[i - 1]) if bm[i - 1] >= 0 else int(d[i - 1])
-    return bm
-
-
 def reference_phase4(p_old: PBWT, p_ref: PBWT) -> PBWT:
     log("Reference phase with extension method EXTEND4")
     M_old, N = p_old.M, p_old.N
@@ -359,15 +278,11 @@ def reference_phase4(p_old: PBWT, p_ref: PBWT) -> PBWT:
     uold = engine.ReadCursor(YOld, p_old.aFstart)
     n_pairs = M_old // 2
 
-    core = None
     if p_old.yz and p_ref.yz:
         # the whole forward lattice as one streaming C pass
-        # (csrc/pbwt_native.c ref_phase4_core; pinned cell-for-cell
-        # against the batched host path below by tests)
-        core = native.ref_phase4_core(p_old.yz, M_old, p_ref.yz, M, N,
-                                      p_old.aFstart, p_ref.aFstart)
-    if core is not None:
-        tb, tb_parent, tb_value = core
+        # (csrc/pbwt_native.c ref_phase4_core)
+        tb, tb_parent, tb_value = native.ref_phase4_core(
+            p_old.yz, M_old, p_ref.yz, M, N, p_old.aFstart, p_ref.aFstart)
         tb = tb.copy()
         log(f"traceBackHeap final {len(tb_parent)}, max {len(tb_parent)}")
         for _ in range(N):
@@ -418,9 +333,9 @@ def reference_phase4(p_old: PBWT, p_ref: PBWT) -> PBWT:
 
 def _phase4_lattice_host(p_ref: PBWT, uold: "engine.ReadCursor",
                          M_old: int, M: int, N: int, n_pairs: int):
-    """Batched-numpy forward lattice (the host fallback of
-    reference_phase4); leaves ``uold`` at the end and returns
-    (tb, tb_parent, tb_value)."""
+    """Batched-numpy forward lattice of reference_phase4 for panels without
+    pack3 bytes; leaves ``uold`` at the end and returns (tb, tb_parent,
+    tb_value)."""
     YRef = p_ref.decoded(True)
     uref = engine.ReadCursor(YRef, p_ref.aFstart)
 
@@ -446,17 +361,13 @@ def _phase4_lattice_host(p_ref: PBWT, uold: "engine.ReadCursor",
         u, c = uref.u, uref.c
         d = uref.d
         lib = native.get_lib()
-        if lib is not None:
-            d32 = np.ascontiguousarray(d, np.int32)
-            yc = np.ascontiguousarray(y, np.uint8)
-            bp0 = np.empty(M + 1, np.int64); bm0 = np.empty(M + 1, np.int64)
-            bp1 = np.empty(M + 1, np.int64); bm1 = np.empty(M + 1, np.int64)
-            lib.phase_stop_max(d32, yc, 0, M, bp0, bm0)
-            lib.phase_stop_max(d32, yc, 1, M, bp1, bm1)
-            bp, bm = [bp0, bp1], [bm0, bm1]
-        else:
-            bp = [_suffix_stop_max(d, y, 0, M), _suffix_stop_max(d, y, 1, M)]
-            bm = [_prefix_stop_max(d, y, 0, M), _prefix_stop_max(d, y, 1, M)]
+        d32 = np.ascontiguousarray(d, np.int32)
+        yc = np.ascontiguousarray(y, np.uint8)
+        bp0 = np.empty(M + 1, np.int64); bm0 = np.empty(M + 1, np.int64)
+        bp1 = np.empty(M + 1, np.int64); bm1 = np.empty(M + 1, np.int64)
+        lib.phase_stop_max(d32, yc, 0, M, bp0, bm0)
+        lib.phase_stop_max(d32, yc, 1, M, bp1, bm1)
+        bp, bm = [bp0, bp1], [bm0, bm1]
         ymask = np.zeros(M + 2, dtype=np.int64)
         ymask[:M] = y
         jmap = [engine.cursor_map(u, c, 0, jidx), engine.cursor_map(u, c, 1, jidx)]

@@ -12,8 +12,6 @@ file I/O and the CLI.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 
 from . import pack3 as p3
@@ -200,7 +198,7 @@ class ReadCursor:
         return x
 
 
-_WC_CHUNK_BYTES = 1 << 23       # natural-column buffer before a native flush
+_WC_CHUNK_BYTES = 1 << 23       # natural-column buffer before a C flush
 
 
 class WriteCursor:
@@ -210,8 +208,8 @@ class WriteCursor:
 
     Natural-order writes (``write_natural``, the hot loop of every text /
     VCF importer — pbwtIO.c:477-482) are buffered and flushed through the
-    native chunk builder (native/pbwt_native.c build_pbwt) ~8 MB of columns
-    at a time; reading ``a``/``n``/``packed()`` flushes first, so the
+    C runtime's build_pbwt (csrc/pbwt_native.c) ~8 MB of columns at a
+    time; reading ``a``/``n``/``packed()`` flushes first, so the
     buffering is invisible to callers.  ``y`` is only maintained by the
     ``write_forwards*`` paths.
     """
@@ -229,7 +227,6 @@ class WriteCursor:
         self._nat_buf: np.ndarray | None = None
         self._nat_fill = 0
         self._nat_cols = max(1, _WC_CHUNK_BYTES // max(M, 1))
-        self._use_native: bool | None = None
 
     # --- buffered-write bookkeeping ------------------------------------
 
@@ -249,18 +246,14 @@ class WriteCursor:
         return self._n
 
     def flush(self) -> None:
-        """Run any buffered natural-order columns through the native
-        chunk builder, advancing the prefix array in place."""
+        """Run any buffered natural-order columns through the C runtime's
+        build_pbwt, advancing the prefix array in place."""
         if not self._nat_fill:
             return
         cols = self._nat_buf[:self._nat_fill]
         self._nat_fill = 0
         from . import native
         chunk = native.build_pbwt_chunk(cols, self._a)
-        if chunk is None:               # toolchain lost mid-stream: slow path
-            for x in cols:
-                self.write_forwards(x[self._a])
-            return
         self.chunks.append(chunk)
         self._n += len(chunk)
 
@@ -270,20 +263,10 @@ class WriteCursor:
         self.flush()
         if y is not None:
             self.y = np.asarray(y, dtype=np.uint8)
-        if self._use_native is None:
-            from . import native
-            self._use_native = native.get_lib() is not None
-        if self._use_native:
-            from . import native
-            chunk = native.pack_advance(self.y, self._a)   # advances _a
-            if chunk is not None:
-                self.chunks.append(chunk)
-                self._n += len(chunk)
-                return
-        chunk = p3.pack3(self.y)
+        from . import native
+        chunk = native.pack_advance(self.y, self._a)   # advances _a
         self.chunks.append(chunk)
         self._n += len(chunk)
-        self._a = forwards_a(self._a, self.y)
 
     def write_forwards_ad(self, k: int, y: np.ndarray | None = None):
         self.flush()
@@ -296,12 +279,6 @@ class WriteCursor:
 
     def write_natural(self, x: np.ndarray):
         """Write a column given in natural order: y[j] = x[a[j]]."""
-        if self._use_native is None:
-            from . import native
-            self._use_native = native.get_lib() is not None
-        if not self._use_native:
-            self.write_forwards(np.asarray(x, dtype=np.uint8)[self._a])
-            return
         if self._nat_buf is None:
             self._nat_buf = np.empty((self._nat_cols, self.M), np.uint8)
         self._nat_buf[self._nat_fill] = x       # copy: callers may reuse x
@@ -328,7 +305,7 @@ def build_from_haplotypes(X: np.ndarray, a_init: np.ndarray | None = None
 
     Equivalent to streaming every column through a WriteCursor
     (the hot loop of every reference importer, e.g. pbwtIO.c:477-482).
-    Returns (yz bytes, aFend).  Uses the native C runtime when available.
+    Returns (yz bytes, aFend): one C pass over the transposed matrix.
     """
     X = np.ascontiguousarray(X, dtype=np.uint8)
     M, N = X.shape
@@ -343,20 +320,7 @@ def build_from_haplotypes(X: np.ndarray, a_init: np.ndarray | None = None
         return yz, a_end
 
     from . import native
-    cols = native.transpose_u8(X)
-    if cols is None:
-        cols = np.ascontiguousarray(X.T)
-    res = native.build_pbwt(cols, a)
-    if res is not None:
-        return res
-
-    Ysort = np.empty((N, M), dtype=np.uint8)
-    for k in range(N):
-        y = X[a, k]
-        Ysort[k] = y
-        a = forwards_a(a, y)
-    yz, _ = p3.pack_columns(Ysort)
-    return yz, a
+    return native.build_pbwt(native.transpose_u8(X), a)
 
 
 def haplotypes_from_packed(Y: np.ndarray, a_init: np.ndarray) -> np.ndarray:

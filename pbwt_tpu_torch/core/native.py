@@ -1,11 +1,10 @@
-"""ctypes bindings to the native host runtime (csrc/pbwt_native.c).
+"""ctypes bindings to the host C runtime (csrc/pbwt_native.c).
 
-Compiled on first use with the system C compiler into
-``build/pbwt_tpu_torch/`` beside the package; every caller falls back to the
-numpy implementations when the toolchain is unavailable, so the native layer
-is a pure accelerator, never a correctness dependency. The fall is not
-silent: the first ``get_lib()`` that returns None warns with the compiler's
-output, which stays in ``build_log``.
+Compiled on first use with the system C compiler (:func:`compiler`) into
+``build/pbwt_tpu_torch/`` beside the package. The port requires it, as its
+kernels require ``nvcc``: every host pass has this one implementation, and
+:func:`get_lib` raises when the runtime cannot be built or loaded, with the
+cause (the compiler's output) in ``build_log``.
 """
 
 from __future__ import annotations
@@ -13,7 +12,6 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-import warnings
 
 import numpy as np
 
@@ -24,7 +22,7 @@ _SO = os.path.join(os.path.dirname(_PKG), "build", "pbwt_tpu_torch",
 
 _lib = None
 _tried = False
-build_log = ""      # why the library is missing, once get_lib() returned None
+build_log = ""      # why the library is missing, once get_lib() raised
 
 
 def compiler() -> str:
@@ -60,19 +58,15 @@ def _compile() -> bool:
 
 
 def get_lib():
-    """Load (building if needed) the native library, or None; the first
-    None comes with a warning that says why, since the numpy routes that
-    take over are far slower."""
-    global _warned
+    """The host C runtime, built and loaded at the first call. Raises
+    RuntimeError naming the cause (a missing source, the compiler's output
+    or the loader's error) when it cannot be had; a later call raises the
+    same without building again."""
     lib = _load()
-    if lib is None and build_log and not _warned:
-        _warned = True
-        warnings.warn("pbwt_tpu_torch: no host C runtime, the numpy routes "
-                      f"take over: {build_log}", RuntimeWarning, stacklevel=2)
+    if lib is None:
+        raise RuntimeError("pbwt_tpu_torch: the host C runtime is required "
+                           f"and is not available: {build_log}")
     return lib
-
-
-_warned = False
 
 
 def _load():
@@ -222,8 +216,16 @@ def _load():
 
 
 # --------------------------------------------------------------------------
-# high-level wrappers (None return = use the numpy fallback)
+# high-level wrappers
 # --------------------------------------------------------------------------
+
+def _checked(n: int, entry: str) -> int:
+    """An entry's count, or ValueError where it returned -1 (a corrupt pack3
+    stream or a failed allocation)."""
+    if n < 0:
+        raise ValueError(f"{entry}: corrupt pack3 stream or out of memory")
+    return n
+
 
 _transpose_pool: dict[tuple, np.ndarray] = {}
 _buffer_pool: dict[str, np.ndarray] = {}
@@ -250,14 +252,12 @@ def pooled_view(shape, dtype, tag: str) -> np.ndarray:
 
 
 def transpose_u8(X: np.ndarray):
-    """Cache-blocked (R, C) -> (C, R) uint8 transpose, or None.
+    """Cache-blocked (R, C) -> (C, R) uint8 transpose.
 
     The output buffer is pooled per shape: fresh multi-MB allocations can
     fault in an order of magnitude slower than the transpose itself.  Callers must treat the result as scratch
     (engine.build_from_haplotypes consumes and discards it)."""
     lib = get_lib()
-    if lib is None:
-        return None
     X = np.ascontiguousarray(X, np.uint8)
     R, C = X.shape
     out = _transpose_pool.get((C, R))
@@ -270,10 +270,8 @@ def transpose_u8(X: np.ndarray):
 
 
 def build_pbwt(cols: np.ndarray, a0: np.ndarray):
-    """cols (N, M) site-major natural-order -> (yz bytes, aFend) or None."""
+    """cols (N, M) site-major natural-order -> (yz bytes, aFend)."""
     lib = get_lib()
-    if lib is None:
-        return None
     N, M = cols.shape
     cols = np.ascontiguousarray(cols, np.uint8)
     a = np.ascontiguousarray(a0, np.int32).copy()
@@ -289,8 +287,7 @@ def build_pbwt(cols: np.ndarray, a0: np.ndarray):
 
 def build_pbwt_chunk(cols: np.ndarray, a: np.ndarray):
     """Advance ``a`` IN PLACE through ``cols`` ((ncols, M) natural-order
-    values), returning the pack3 bytes for those columns, or None when the
-    native library is unavailable.
+    values), returning the pack3 bytes for those columns.
 
     This is the streaming-cursor fast path (engine.WriteCursor buffers
     natural-order columns and flushes them here): one C call per ~8 MB of
@@ -298,8 +295,6 @@ def build_pbwt_chunk(cols: np.ndarray, a: np.ndarray):
     partition that mirrors pbwtCursorWriteForwards (pbwtCore.c:573-585).
     ``a`` must be int32 and C-contiguous."""
     lib = get_lib()
-    if lib is None:
-        return None
     ncols, M = cols.shape
     cols = np.ascontiguousarray(cols, np.uint8)
     # pack3 never emits more than one byte per encoded symbol, so
@@ -315,10 +310,8 @@ def build_pbwt_chunk(cols: np.ndarray, a: np.ndarray):
 def pack_advance(y: np.ndarray, a: np.ndarray):
     """One write-cursor step (pbwtCursorWriteForwards, pbwtCore.c:573-578):
     pack3-encode the sorted column and advance ``a`` IN PLACE.  Returns the
-    packed bytes, or None when the native library is unavailable."""
+    packed bytes."""
     lib = get_lib()
-    if lib is None:
-        return None
     y = np.ascontiguousarray(y, np.uint8)
     M = y.shape[0]
     out = pooled(M + 8, "pack_adv_out")
@@ -332,15 +325,13 @@ def natural_cols(yz: bytes, ncols: int, M: int, a0: np.ndarray,
                  start: int = 0, with_pos: bool = False):
     """Stream a packed PBWT into site-major NATURAL-order columns.
 
-    Returns (X (ncols, M) uint8, a_end, ones_per_col int64) or None — or,
+    Returns (X (ncols, M) uint8, a_end, ones_per_col int64) or,
     with ``with_pos``, (X, a_end, counts, next_start) so a caller can
     stream the panel in site chunks with O(M * chunk) live bytes (pass the
     advanced ``a_end`` back as ``a0`` and ``next_start`` as ``start``).
     One C pass (decode + scatter + prefix advance) replaces
     decode-everything + a python a-chase + a transpose."""
     lib = get_lib()
-    if lib is None:
-        return None
     buf = np.frombuffer(bytes(yz), np.uint8)[start:]
     a = np.ascontiguousarray(a0, np.int32).copy()
     X = np.empty((ncols, M), np.uint8)
@@ -355,11 +346,8 @@ def natural_cols(yz: bytes, ncols: int, M: int, a0: np.ndarray,
 
 def build_reverse_core(yz: bytes, M: int, N: int, aFend: np.ndarray):
     """pbwtBuildReverse as one C pass (offsets skim + backward stream +
-    fused gather/encode/partition emit).  Returns (zz bytes, aRend) or
-    None when the native library is unavailable."""
+    fused gather/encode/partition emit).  Returns (zz bytes, aRend)."""
     lib = get_lib()
-    if lib is None:
-        return None
     buf = np.frombuffer(bytes(yz), np.uint8)
     a_end = np.ascontiguousarray(aFend, np.int32)
     cap = len(buf) + 16 * N + 65536
@@ -378,8 +366,6 @@ def build_reverse_core(yz: bytes, M: int, N: int, aFend: np.ndarray):
 def _corrupt_call(fn_name, yzold: bytes, M: int, N: int, a0: np.ndarray,
                   args: tuple, M_new: int | None = None):
     lib = get_lib()
-    if lib is None:
-        return None
     z = np.frombuffer(bytes(yzold), np.uint8)
     Mout = M_new if M_new is not None else M
     cap = N * (Mout + 8) + 16
@@ -395,19 +381,19 @@ def _corrupt_call(fn_name, yzold: bytes, M: int, N: int, a0: np.ndarray,
 
 
 def corrupt_sites_core(yzold, M, N, a0, r_site, r_change, r_fac):
-    """pbwtCorruptSites streaming core; (yz, a_end, n_change) or None."""
+    """pbwtCorruptSites streaming core; (yz, a_end, n_change)."""
     return _corrupt_call("corrupt_sites_core", yzold, M, N, a0,
                          (r_site, r_change, float(r_fac)))
 
 
 def corrupt_samples_core(yzold, M, N, a0, r_sample, r_change, r_fac):
-    """pbwtCorruptSamples streaming core; (yz, a_end, n_change) or None."""
+    """pbwtCorruptSamples streaming core; (yz, a_end, n_change)."""
     return _corrupt_call("corrupt_samples_core", yzold, M, N, a0,
                          (r_sample, r_change, float(r_fac)))
 
 
 def copy_samples_core(yzold, M_old, N, a0, m_new, r_switch):
-    """pbwtCopySamples streaming core; (yz, a_end, 0) or None."""
+    """pbwtCopySamples streaming core; (yz, a_end, 0)."""
     return _corrupt_call("copy_samples_core", yzold, M_old, N, a0,
                          (m_new, r_switch), M_new=m_new)
 
@@ -418,11 +404,8 @@ def phase_sweep_core(yzp: bytes, M: int, N: int, ap0: np.ndarray,
                      thresh: float):
     """One whole phaseSweep pass (pbwtImpute.c:288-372) in C.
 
-    Returns (yz bytes, aq_end, bq_end) or None when the native library is
-    unavailable."""
+    Returns (yz bytes, aq_end, bq_end)."""
     lib = get_lib()
-    if lib is None:
-        return None
     zp = np.frombuffer(bytes(yzp), np.uint8)
     zr = np.frombuffer(bytes(r_yz) if r_yz else b"\x00", np.uint8)
     dummy = np.zeros(1, np.int32)
@@ -451,11 +434,9 @@ def ref_phase4_core(yzold: bytes, Mold: int, yzref: bytes, Mref: int,
                     N: int, aold0: np.ndarray, aref0: np.ndarray):
     """The referencePhase4 forward lattice (pbwtImpute.c:905-1005) as one
     streaming C pass.  Returns (tb int64[n_pairs] — the traceback root of
-    each diploid's best final cell — tb_parent int32[n], tb_value uint8[n])
-    or None when the native library is unavailable."""
+    each diploid's best final cell — tb_parent int32[n], tb_value
+    uint8[n])."""
     lib = get_lib()
-    if lib is None:
-        return None
     bo = np.frombuffer(bytes(yzold), np.uint8)
     br = np.frombuffer(bytes(yzref), np.uint8)
     n_pairs = Mold // 2
@@ -479,10 +460,8 @@ def merge_core(yzs: list[bytes], Ms: list[int], a0s: list[np.ndarray],
     starting prefix array; acts[f] is the file's action stream over its
     consumed columns in order (1 = column of an emitted shared site,
     0 = discard) with exactly n_emit ones.  Returns (yz, a_end) for the
-    merged PBWT, or None when the native library is unavailable."""
+    merged PBWT."""
     lib = get_lib()
-    if lib is None:
-        return None
     nf = len(yzs)
     Mtot = int(sum(Ms))
     # zero-copy input streams: per-file pointers into the caller's own
@@ -519,10 +498,8 @@ def phase_compare_core(yzp: bytes, yzq: bytes, M: int, N: int,
                        ap0: np.ndarray, aq0: np.ndarray):
     """phaseCompare's per-pair switch scan as one streaming C pass.
     Returns (n_switch, n_het, n_switch1, n_switch5, n_switch_sample,
-    n_switch_site) or None."""
+    n_switch_site)."""
     lib = get_lib()
-    if lib is None:
-        return None
     bp = np.frombuffer(bytes(yzp), np.uint8)
     bq = np.frombuffer(bytes(yzq), np.uint8)
     out4 = np.zeros(4, np.int64)
@@ -542,10 +519,8 @@ def gtcompare_core(yzp: bytes, yzq: bytes, M: int, N: int,
                    ii: np.ndarray, fbound: np.ndarray):
     """genotypeCompare counting (pbwtImpute.c:1398-1438) as one streaming
     C pass over both packed panels.  Returns (n (17, 9), ns9 (M//2, 9),
-    fsum, nsum, isum, ni) or None."""
+    fsum, nsum, isum, ni)."""
     lib = get_lib()
-    if lib is None:
-        return None
     bp = np.frombuffer(bytes(yzp), np.uint8)
     bq = np.frombuffer(bytes(yzq), np.uint8)
     nb = len(fbound)
@@ -570,11 +545,8 @@ def gtcompare_core(yzp: bytes, yzq: bytes, M: int, N: int,
 
 def segs_sort(rows: np.ndarray, T: int):
     """Match rows (n, 4) int64 [j, jr, s, e] -> per-target start-sorted
-    i32 columns (jr, s, e) + seg_off (T+1,) int64, in one C pass.
-    Returns None when the native library is unavailable."""
+    i32 columns (jr, s, e) + seg_off (T+1,) int64, in one C pass."""
     lib = get_lib()
-    if lib is None:
-        return None
     rows = np.ascontiguousarray(rows, np.int64)
     n = len(rows)
     jr = np.empty(n, np.int32)
@@ -587,26 +559,21 @@ def segs_sort(rows: np.ndarray, T: int):
 
 
 def buckets_sort_start(sj: np.ndarray, ss: np.ndarray, se: np.ndarray,
-                       seg_off: np.ndarray) -> bool:
+                       seg_off: np.ndarray) -> None:
     """Sort already-bucketed (donor, start, end) runs by start, in place
-    (one C pass).  Returns False when the native library is missing."""
+    (one C pass)."""
     lib = get_lib()
-    if lib is None:
-        return False
     T = len(seg_off) - 1
     if lib.buckets_sort_start(sj, ss, se,
                               np.ascontiguousarray(seg_off, np.int64),
                               T) < 0:
         raise MemoryError("buckets_sort_start")
-    return True
 
 
 def max_within(Ysort: np.ndarray, a0: np.ndarray):
     """All set-maximal within-panel match reports as an (n, 4) int64 array
-    in reference scan order, or None."""
+    in reference scan order."""
     lib = get_lib()
-    if lib is None:
-        return None
     N, M = Ysort.shape
     Ysort = np.ascontiguousarray(Ysort, np.uint8)
     a0 = np.ascontiguousarray(a0, np.int32)
@@ -621,10 +588,8 @@ def max_within(Ysort: np.ndarray, a0: np.ndarray):
 
 def long_within(Ysort: np.ndarray, T: int, a0: np.ndarray):
     """Long-match (> T) reports as an (n, 4) int64 array in reference scan
-    order, or None."""
+    order."""
     lib = get_lib()
-    if lib is None:
-        return None
     N, M = Ysort.shape
     Ysort = np.ascontiguousarray(Ysort, np.uint8)
     a0 = np.ascontiguousarray(a0, np.int32)
@@ -643,59 +608,51 @@ def max_within_bucketed(yz: bytes, M: int, N: int, a0: np.ndarray):
     (seg_j, seg_s, seg_e, seg_off) in the reference's per-recipient report
     order without ever holding the (n, 4) int64 row set - peak memory is
     3n int32 (the painting consumers' own layout) at the cost of a second
-    streaming pass over the pack3 bytes.  None when the library is
-    unavailable."""
+    streaming pass over the pack3 bytes."""
     lib = get_lib()
-    if lib is None:
-        return None
     z = np.frombuffer(yz, np.uint8)
     a0 = np.ascontiguousarray(a0, np.int32)
     off = np.zeros(M + 1, np.int64)
-    n = lib.max_within_bucket_count(z, len(z), M, N, a0, off)
-    if n < 0:
-        return None
+    n = _checked(lib.max_within_bucket_count(z, len(z), M, N, a0, off),
+                 "max_within_bucket_count")
     sj = pooled_view((max(n, 1),), np.int32, "paint:sj")
     ss = pooled_view((max(n, 1),), np.int32, "paint:ss")
     se = pooled_view((max(n, 1),), np.int32, "paint:se")
     n2 = lib.max_within_bucket_fill(z, len(z), M, N, a0, sj, ss, se, off)
     if n2 != n:
-        return None
+        raise ValueError(f"max_within_bucket_fill: {n2} reports after a "
+                         f"count of {n}")
     return sj[:n], ss[:n], se[:n], off
 
 
 def max_within_packed(yz: bytes, M: int, N: int, a0: np.ndarray):
     """max_within streaming the pack3 bytes directly (O(M) live memory,
-    like the reference cursor model); (n, 4) int64 rows or None."""
+    like the reference cursor model); (n, 4) int64 rows."""
     lib = get_lib()
-    if lib is None:
-        return None
     z = np.frombuffer(yz, np.uint8)
     a0 = np.ascontiguousarray(a0, np.int32)
     cap = max(4096, 8 * M)
     while True:
         out = pooled_view((cap, 4), np.int64, "rows:max_within")
-        n = lib.max_within_packed(z, len(z), M, N, a0, out.reshape(-1), cap)
-        if n < 0:
-            return None
+        n = _checked(lib.max_within_packed(z, len(z), M, N, a0,
+                                           out.reshape(-1), cap),
+                     "max_within_packed")
         if n <= cap:
             return out[:n]
         cap = n
 
 
 def long_within_packed(yz: bytes, T: int, M: int, N: int, a0: np.ndarray):
-    """long_within streaming the pack3 bytes; (n, 4) int64 rows or None."""
+    """long_within streaming the pack3 bytes; (n, 4) int64 rows."""
     lib = get_lib()
-    if lib is None:
-        return None
     z = np.frombuffer(yz, np.uint8)
     a0 = np.ascontiguousarray(a0, np.int32)
     cap = max(4096, 8 * M)
     while True:
         out = pooled_view((cap, 4), np.int64, "rows:long_within")
-        n = lib.long_within_packed(z, len(z), M, N, T, a0,
-                                   out.reshape(-1), cap)
-        if n < 0:
-            return None
+        n = _checked(lib.long_within_packed(z, len(z), M, N, T, a0,
+                                            out.reshape(-1), cap),
+                     "long_within_packed")
         if n <= cap:
             return out[:n]
         cap = n
@@ -703,33 +660,27 @@ def long_within_packed(yz: bytes, T: int, M: int, N: int, a0: np.ndarray):
 
 def max_within_print(yz: bytes, M: int, N: int, a0: np.ndarray, fd: int):
     """Stream MATCH lines for all set-maximal matches straight to fd
-    (never materialising the row set); returns report count or None."""
+    (never materialising the row set); returns the report count."""
     lib = get_lib()
-    if lib is None:
-        return None
     z = np.frombuffer(yz, np.uint8)
     a0 = np.ascontiguousarray(a0, np.int32)
-    n = lib.max_within_print(z, len(z), M, N, a0, fd)
-    return None if n < 0 else n
+    return _checked(lib.max_within_print(z, len(z), M, N, a0, fd),
+                    "max_within_print")
 
 
 def long_within_print(yz: bytes, T: int, M: int, N: int, a0: np.ndarray,
                       fd: int):
     lib = get_lib()
-    if lib is None:
-        return None
     z = np.frombuffer(yz, np.uint8)
     a0 = np.ascontiguousarray(a0, np.int32)
-    n = lib.long_within_print(z, len(z), M, N, T, a0, fd)
-    return None if n < 0 else n
+    return _checked(lib.long_within_print(z, len(z), M, N, T, a0, fd),
+                    "long_within_print")
 
 
 def format_f4_row(vals: np.ndarray):
     """One table row as ' %.4f' per value (glibc printf semantics, like
-    the reference's fprintf loops), or None."""
+    the reference's fprintf loops)."""
     lib = get_lib()
-    if lib is None:
-        return None
     vals = np.ascontiguousarray(vals, np.float64)
     buf = ctypes.create_string_buffer(16 * len(vals) + 16)
     n = lib.format_f4_row(vals, len(vals), buf)
@@ -739,10 +690,8 @@ def format_f4_row(vals: np.ndarray):
 def format_f4_rows(table: np.ndarray):
     """Whole (R, C) table as per-row ' %.4f' strings in ONE native call
     (the per-row ctypes overhead dominated -paint's emitters).  Returns a
-    list of R strings, or None."""
+    list of R strings."""
     lib = get_lib()
-    if lib is None:
-        return None
     table = np.ascontiguousarray(table, np.float64)
     R, C = table.shape
     buf = pooled(16 * R * C + 16, "fmt_f4_rows")
@@ -769,10 +718,8 @@ def impute_vote_emit(yzref: bytes, Mref: int, Nref: int, a_ref0: np.ndarray,
     complete entries copy straight through and only missing entries vote.
 
     Returns (yz, zdosage, dos_off, ref_freq, psums, xsums, pxsums, nvote,
-    n_conflicts, a_tgt_end) or None when the native library is missing."""
+    n_conflicts, a_tgt_end)."""
     lib = get_lib()
-    if lib is None:
-        return None
     buf = np.frombuffer(bytes(yzref), np.uint8)
     a_ref = np.ascontiguousarray(a_ref0, np.int32).copy()
     a_tgt = np.arange(T, dtype=np.int32)
@@ -815,11 +762,8 @@ def impute_emit(x_all: np.ndarray, dos_all: np.ndarray, a0: np.ndarray):
     gather to sort order, pack3 the alleles, RLE the quantised dosages,
     advance the prefix array.  x_all/dos_all are site-major (Nref, T).
 
-    Returns (yz bytes, zdosage bytes, dosage_offsets int64, a_end) or
-    None when the native library is unavailable."""
+    Returns (yz bytes, zdosage bytes, dosage_offsets int64, a_end)."""
     lib = get_lib()
-    if lib is None:
-        return None
     Nref, T = x_all.shape
     x_all = np.ascontiguousarray(x_all, np.uint8)
     dos_all = np.ascontiguousarray(dos_all, np.float64)
@@ -841,8 +785,6 @@ def impute_emit(x_all: np.ndarray, dos_all: np.ndarray, a0: np.ndarray):
 
 def decode_cols(yz: bytes, ncols: int, M: int):
     lib = get_lib()
-    if lib is None:
-        return None
     buf = np.frombuffer(bytes(yz), np.uint8)
     # decoded() caches the result on the PBWT, so this buffer must be owned
     # by the caller: pool only the page-fault cost via a warm template when
@@ -856,8 +798,6 @@ def decode_cols(yz: bytes, ncols: int, M: int):
 
 def encode_cols(Y: np.ndarray):
     lib = get_lib()
-    if lib is None:
-        return None
     Y = np.ascontiguousarray(Y, np.uint8)
     ncols, M = Y.shape
     out = np.empty(ncols * (M + 8) + 16, np.uint8)
@@ -868,10 +808,8 @@ def encode_cols(Y: np.ndarray):
 
 def sweep_match_packed(yzp: bytes, M: int, yzq: bytes, Q: int, N: int,
                        ap0: np.ndarray, aq0: np.ndarray):
-    """Dynamic sweep matcher streaming both pack3 streams; rows or None."""
+    """Dynamic sweep matcher streaming both pack3 streams; (n, 4) rows."""
     lib = get_lib()
-    if lib is None:
-        return None
     zp = np.frombuffer(yzp, np.uint8)
     zq = np.frombuffer(yzq, np.uint8)
     ap0 = np.ascontiguousarray(ap0, np.int32)
@@ -879,10 +817,9 @@ def sweep_match_packed(yzp: bytes, M: int, yzq: bytes, Q: int, N: int,
     cap = max(4096, 8 * Q + N)
     while True:
         out = pooled_view((cap, 4), np.int64, "rows:sweep")
-        n = lib.sweep_match_packed(zp, len(zp), M, zq, len(zq), Q, N,
-                                   ap0, aq0, out.reshape(-1), cap)
-        if n < 0:
-            return None
+        n = _checked(lib.sweep_match_packed(zp, len(zp), M, zq, len(zq), Q,
+                                            N, ap0, aq0, out.reshape(-1),
+                                            cap), "sweep_match_packed")
         if n <= cap:
             return out[:n]
         cap = n
@@ -890,10 +827,8 @@ def sweep_match_packed(yzp: bytes, M: int, yzq: bytes, Q: int, N: int,
 
 def select_repack(yz: bytes, M: int, N: int, keep: np.ndarray,
                   a0: np.ndarray):
-    """Stream-select sites keep[k] != 0 and re-PBWT; (yz', a_end) or None."""
+    """Stream-select sites keep[k] != 0 and re-PBWT; (yz', a_end)."""
     lib = get_lib()
-    if lib is None:
-        return None
     z = np.frombuffer(yz, np.uint8)
     keep = np.ascontiguousarray(keep, np.uint8)
     a0 = np.ascontiguousarray(a0, np.int32)
@@ -901,9 +836,8 @@ def select_repack(yz: bytes, M: int, N: int, keep: np.ndarray,
     cap = max(len(z) + 16, 4096)
     while True:
         out = np.empty(cap, np.uint8)
-        n = lib.select_repack(z, len(z), M, N, keep, a0, out, cap, a_end)
-        if n < 0:
-            return None
+        n = _checked(lib.select_repack(z, len(z), M, N, keep, a0, out, cap,
+                                       a_end), "select_repack")
         if n <= cap:
             return out[:n].tobytes(), a_end
         cap = n
@@ -920,27 +854,22 @@ def _stdout_fd(stream) -> int:
 def sweep_match_print(yzp: bytes, M: int, yzq: bytes, Q: int, N: int,
                       ap0: np.ndarray, aq0: np.ndarray, fd: int):
     """Stream sweep MATCH lines to fd; returns (n_reports, tot_len,
-    n_nonzero) or None."""
+    n_nonzero)."""
     lib = get_lib()
-    if lib is None:
-        return None
     zp = np.frombuffer(yzp, np.uint8)
     zq = np.frombuffer(yzq, np.uint8)
     stats = np.zeros(3, np.int64)
-    n = lib.sweep_match_print(zp, len(zp), M, zq, len(zq), Q, N,
-                              np.ascontiguousarray(ap0, np.int32),
-                              np.ascontiguousarray(aq0, np.int32), fd, stats)
-    if n < 0:
-        return None
+    _checked(lib.sweep_match_print(zp, len(zp), M, zq, len(zq), Q, N,
+                                   np.ascontiguousarray(ap0, np.int32),
+                                   np.ascontiguousarray(aq0, np.int32), fd,
+                                   stats), "sweep_match_print")
     return int(stats[0]), int(stats[1]), int(stats[2])
 
 
-def write_match_rows(rows: np.ndarray, out) -> bool:
+def write_match_rows(rows: np.ndarray, out) -> None:
     """Bulk-format (n, 4) match rows as MATCH lines into the binary stream
-    ``out`` (chunked); returns False when the native lib is unavailable."""
+    ``out`` (chunked)."""
     lib = get_lib()
-    if lib is None:
-        return False
     rows = np.ascontiguousarray(rows, np.int64)
     CHUNK = 1 << 21
     for i0 in range(0, len(rows), CHUNK):
@@ -949,27 +878,21 @@ def write_match_rows(rows: np.ndarray, out) -> bool:
         buf = pooled_view((cap,), np.uint8, "rows:fmt")
         n = lib.format_match_rows(part.reshape(-1), len(part), buf, cap)
         out.write(buf[:n].tobytes())
-    return True
 
 
 def col_counts(yz: bytes, M: int, N: int):
-    """Per-site zero counts straight off the run-length bytes, or None."""
+    """Per-site zero counts straight off the run-length bytes."""
     lib = get_lib()
-    if lib is None:
-        return None
     z = np.frombuffer(yz, np.uint8)
     c0 = np.empty(N, np.int64)
-    if lib.col_counts(z, len(z), M, N, c0) < 0:
-        return None
+    _checked(lib.col_counts(z, len(z), M, N, c0), "col_counts")
     return c0
 
 
 def subsample_repack(yz: bytes, M: int, N: int, select: np.ndarray,
                      a0: np.ndarray):
-    """Stream-re-PBWT a haplotype selection; (yz', a_end) or None."""
+    """Stream-re-PBWT a haplotype selection; (yz', a_end)."""
     lib = get_lib()
-    if lib is None:
-        return None
     z = np.frombuffer(yz, np.uint8)
     select = np.ascontiguousarray(select, np.int64)
     a0 = np.ascontiguousarray(a0, np.int32)
@@ -978,10 +901,8 @@ def subsample_repack(yz: bytes, M: int, N: int, select: np.ndarray,
     cap = max(len(z) + 16, 4096)
     while True:
         out = np.empty(cap, np.uint8)
-        n = lib.subsample_repack(z, len(z), M, N, select, Mnew, a0, out,
-                                 cap, a_end)
-        if n < 0:
-            return None
+        n = _checked(lib.subsample_repack(z, len(z), M, N, select, Mnew, a0,
+                                          out, cap, a_end), "subsample_repack")
         if n <= cap:
             return out[:n].tobytes(), a_end
         cap = n
@@ -989,10 +910,8 @@ def subsample_repack(yz: bytes, M: int, N: int, select: np.ndarray,
 
 def sweep_match(Ysp: np.ndarray, ap0: np.ndarray, Ysq: np.ndarray,
                 aq0: np.ndarray):
-    """Dynamic sweep query-vs-panel match reports (n, 4) int64, or None."""
+    """Dynamic sweep query-vs-panel match reports (n, 4) int64."""
     lib = get_lib()
-    if lib is None:
-        return None
     N, M = Ysp.shape
     Nq, Q = Ysq.shape
     assert N == Nq

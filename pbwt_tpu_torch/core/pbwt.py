@@ -11,7 +11,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from . import engine, pack3 as p3, registry
+from . import engine, registry
 
 
 @dataclass
@@ -70,22 +70,15 @@ class PBWT:
     def decoded(self, forwards: bool = True) -> np.ndarray:
         """(N, M) uint8 matrix of sorted-order column values."""
         from . import native
-
-        def _unpack(buf):
-            Y = native.decode_cols(buf, self.N, self.M)
-            if Y is None:
-                Y, _ = p3.unpack_all(buf, self.M, self.N)
-            return Y
-
         if forwards:
             if self._decoded_f is None:
-                self._decoded_f = _unpack(self.yz)
+                self._decoded_f = native.decode_cols(self.yz, self.N, self.M)
             return self._decoded_f
         else:
             if self._decoded_r is None:
                 if self.zz is None:
                     raise ValueError("no reverse pbwt present")
-                self._decoded_r = _unpack(self.zz)
+                self._decoded_r = native.decode_cols(self.zz, self.N, self.M)
             return self._decoded_r
 
     def haplotypes(self) -> np.ndarray:
@@ -93,34 +86,27 @@ class PBWT:
         a0 = self.aFstart if self.aFstart is not None else np.arange(self.M, dtype=np.int32)
         if self.yz:
             from . import native
-            lib = native.get_lib()
-            if lib is not None:
-                # one streaming C pass straight off the pack3 bytes + a
-                # C transpose (skips decoding the sorted matrix entirely)
-                Xc, _, _ = native.natural_cols(self.yz, self.N, self.M, a0)
-                X = np.empty((self.M, self.N), np.uint8)
-                lib.transpose_u8(Xc.reshape(-1), self.N, self.M,
-                                 X.reshape(-1))
-                return X
+            # one streaming C pass straight off the pack3 bytes + a
+            # C transpose (skips decoding the sorted matrix entirely)
+            Xc, _, _ = native.natural_cols(self.yz, self.N, self.M, a0)
+            X = np.empty((self.M, self.N), np.uint8)
+            native.get_lib().transpose_u8(Xc.reshape(-1), self.N, self.M,
+                                          X.reshape(-1))
+            return X
         return engine.haplotypes_from_packed(self.decoded(True), a0)
 
     def stream_sorted(self, block: int = 1024):
         """Yield (k0, Yblock) sorted-column blocks of at most ``block``
         sites, decoding the pack3 stream incrementally - O(M*block) live
         memory, the streaming analogue of the reference's read cursor
-        (pbwtCore.c:527-541).  The yielded array is a reused buffer on the
-        native path: consume it before advancing."""
+        (pbwtCore.c:527-541).  The yielded array is a reused buffer unless
+        the panel is decoded already: consume it before advancing."""
         if self._decoded_f is not None:
             for k0 in range(0, self.N, block):
                 yield k0, self._decoded_f[k0:k0 + block]
             return
         from . import native
         lib = native.get_lib()
-        if lib is None:
-            Y = self.decoded(True)
-            for k0 in range(0, self.N, block):
-                yield k0, Y[k0:k0 + block]
-            return
         z = np.frombuffer(self.yz, np.uint8)
         pos = 0
         buf = np.empty((block, self.M), np.uint8)
@@ -161,14 +147,12 @@ class PBWT:
         if self.yz and self.aFend is not None:
             # one C pass: offsets skim + backward prefix-array inversion +
             # fused gather/encode/partition emit (pbwtCore.c:151-191)
-            res = native.build_reverse_core(self.yz, self.M, self.N,
-                                            self.aFend)
-            if res is not None:
-                self.aRstart = self.aFend.copy()
-                self.zz, self.aRend = res
-                self._decoded_r = None
-                log(f"built reverse PBWT - size {len(self.zz)}")
-                return
+            self.zz, self.aRend = native.build_reverse_core(
+                self.yz, self.M, self.N, self.aFend)
+            self.aRstart = self.aFend.copy()
+            self._decoded_r = None
+            log(f"built reverse PBWT - size {len(self.zz)}")
+            return
         Y = self.decoded(True)
         a0 = self.aFstart if self.aFstart is not None else np.arange(self.M, dtype=np.int32)
         if self.aFend is None:
@@ -207,20 +191,19 @@ class PBWT:
     def _rebuild_with_keep(self, keep: np.ndarray, sites: list[Site] | None
                            ) -> "PBWT":
         """Re-PBWT a site selection.  Streams the pack3 bytes through the
-        native cursor pair when available (O(M) live memory, like the
-        reference's pbwtSubSites/SelectSites loops); falls back to the
-        decoded-matrix rebuild otherwise."""
+        C cursor pair (O(M) live memory, like the reference's
+        pbwtSubSites/SelectSites loops); a PBWT without bytes is rebuilt
+        from its haplotypes."""
         from . import native
         keep = np.ascontiguousarray(keep, np.uint8)
         if self.yz:
             a0 = (self.aFstart if self.aFstart is not None
                   else np.arange(self.M, dtype=np.int32))
-            res = native.select_repack(self.yz, self.M, self.N, keep, a0)
-            if res is not None:
-                pnew = PBWT(self.M, int(np.count_nonzero(keep)))
-                pnew.yz, pnew.aFend = res
-                pnew.sites = sites
-                return pnew
+            pnew = PBWT(self.M, int(np.count_nonzero(keep)))
+            pnew.yz, pnew.aFend = native.select_repack(self.yz, self.M,
+                                                       self.N, keep, a0)
+            pnew.sites = sites
+            return pnew
         X = self.haplotypes()
         return self._rebuild_with_columns(
             np.ascontiguousarray(X[:, np.flatnonzero(keep)]), sites)
@@ -234,9 +217,7 @@ class PBWT:
         from . import native
         M = self.M
         thresh = int(M * (1 - fmin))
-        c0 = native.col_counts(self.yz, M, self.N) if self.yz else None
-        if c0 is None:
-            c0 = (self.decoded(True) == 0).sum(axis=1)
+        c0 = native.col_counts(self.yz, M, self.N)
         keep = []
         bit = 0.0
         for i in range(self.N):
@@ -368,13 +349,8 @@ class PBWT:
         pnew = PBWT(int(len(select)), self.N)
         a0 = (self.aFstart if self.aFstart is not None
               else np.arange(self.M, dtype=np.int32))
-        res = native.subsample_repack(self.yz, self.M, self.N,
-                                      np.asarray(select, np.int64), a0)
-        if res is not None:
-            pnew.yz, pnew.aFend = res
-        else:
-            Xn = self.haplotypes()[np.asarray(select, dtype=np.int64)]
-            pnew.yz, pnew.aFend = engine.build_from_haplotypes(Xn)
+        pnew.yz, pnew.aFend = native.subsample_repack(
+            self.yz, self.M, self.N, np.asarray(select, np.int64), a0)
         if self.samples:
             pnew.samples = [self.samples[int(j)] for j in select]
         pnew.chrom = self.chrom

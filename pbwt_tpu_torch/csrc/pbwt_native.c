@@ -4,8 +4,8 @@
  * Fresh implementations of the PBWT primitives (Durbin, Bioinformatics
  * 30:1266-72, 2014) in C for host-side throughput; the device path lives in
  * pbwt_tpu_torch/ops and its CUDA sources beside this file.  Exposed through
- * ctypes (pbwt_tpu_torch/core/native.py); every entry point has a numpy
- * fallback with identical semantics.  Holds the entries the port calls:
+ * ctypes (pbwt_tpu_torch/core/native.py), which the port requires: each
+ * host pass has this one implementation.  Holds the entries the port calls:
  * the pack3 codec, the forward build, the sweep matcher, the within-panel
  * matchers (-maxWithin, -longWithin) and their bucketed collector, the
  * repack and natural-order streams, the reverse build, reference

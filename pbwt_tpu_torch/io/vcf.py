@@ -150,14 +150,13 @@ def _build_from_records(filename: str, sample_names, records) -> PBWT:
         gti = fmt.index("GT")
         parsed = None
         if len(f) == 10 and len(sample_names) > 0:
-            lib = native.get_lib()
-            if lib is not None:
-                nsamp = len(sample_names)
-                blob = f[9].encode()
-                av = np.empty(2 * nsamp, np.int8)
-                ns = lib.vcf_parse_gt(blob, len(blob), gti, nsamp, av)
-                if ns == nsamp:
-                    parsed = av.reshape(nsamp, 2)
+            nsamp = len(sample_names)
+            blob = f[9].encode()
+            av = np.empty(2 * nsamp, np.int8)
+            ns = native.get_lib().vcf_parse_gt(blob, len(blob), gti, nsamp,
+                                               av)
+            if ns == nsamp:
+                parsed = av.reshape(nsamp, 2)
         if parsed is not None:
             a0 = parsed[:, 0].astype(np.int32)
             a1 = parsed[:, 1].astype(np.int32)

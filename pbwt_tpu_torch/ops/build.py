@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .. import tracing
-from ..core import native, pack3
+from ..core import native
 from . import kernels, resolve_device
 from .partition import GROUP, ad_trajectory, group_scan
 
@@ -160,14 +160,12 @@ def build_scan_grouped(W: torch.Tensor, a0: torch.Tensor,
 
 def encode_columns(ycols: np.ndarray, M: int) -> bytes:
     """pack3 bytes of packed sorted columns, ENCODE_SITES columns at a time
-    (a column's bytes do not depend on the others')."""
+    (a column's bytes do not depend on the others'), by the host C
+    runtime's column encoder."""
     out = []
     for c0 in range(0, len(ycols), ENCODE_SITES):
         Y = unpack_columns(ycols[c0:c0 + ENCODE_SITES], M)
-        # the native column encoder when the C runtime is there (its absence
-        # comes with a warning): numpy's pack_columns spends most of its time
-        # in np.unique at this size
-        out.append((native.encode_cols(Y) or pack3.pack_columns(Y))[0])
+        out.append(native.encode_cols(Y)[0])      # the C column encoder
     return b"".join(out)
 
 

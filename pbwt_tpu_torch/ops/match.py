@@ -42,21 +42,38 @@ PLANE_WORDS = kernels.PLANE_WORDS   # int32 words a block of the rank plane
 
 # bit-reversal of a byte: packbits order (site 8j at bit 7) -> site 8j at bit 0
 _REV8 = [int(f"{i:08b}"[::-1], 2) for i in range(256)]
-_BITREV = torch.tensor(_REV8, dtype=torch.uint8)
 
 
 def pow2_at_least(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
+def _packed_rows(X: np.ndarray, rows: int, width: int) -> np.ndarray:
+    """(R, N) 0/1 -> (rows, width) uint8 numpy packbits rows (site j at bit
+    7 - (j & 7) of byte j >> 3), zero beyond N; rows R .. rows-1 repeat row
+    0 (the matcher's padding rows)."""
+    bits = np.packbits(np.ascontiguousarray(X, np.uint8), axis=1)
+    out = np.zeros((rows, width), np.uint8)
+    out[:len(bits), :bits.shape[1]] = bits
+    if rows > len(bits):
+        out[len(bits):] = out[0]
+    return out
+
+
 def pack_row_words(X: np.ndarray, nw: int) -> np.ndarray:
     """(R, N) 0/1 -> (R, nw) int32 row words, numpy packbits bytes read as
     little-endian int32 (site j in word j >> 5, bit 8*((j>>3)&3) + 7-(j&7)),
     zero beyond N."""
-    bits = np.packbits(np.ascontiguousarray(X, np.uint8), axis=1)
-    out = np.zeros((X.shape[0], 4 * nw), np.uint8)
-    out[:, :bits.shape[1]] = bits
-    return out.view(np.int32)
+    return _packed_rows(X, X.shape[0], 4 * nw).view(np.int32)
+
+
+def _reverse_bits(x: torch.Tensor) -> torch.Tensor:
+    """Each byte of a uint8 tensor with its bits in reverse order (packbits
+    order, site 8j at bit 7, to site 8j at bit 0), in temporaries of the
+    tensor's own size."""
+    x = (x >> 4) | (x << 4)
+    x = ((x >> 2) & 0x33) | ((x & 0x33) << 2)
+    return ((x >> 1) & 0x55) | ((x & 0x55) << 1)
 
 
 def panel_trajectory(W: torch.Tensor, a0: torch.Tensor, d0: torch.Tensor):
@@ -349,10 +366,7 @@ class DeviceMatcher:
             M, N = Xp.shape
             self._shape_init(M, N, device)
             with tracing.span("setup.matcher.pack"):
-                xp_pad = np.zeros((self.Mp, 4 * self.Ng), np.uint8)
-                bits = np.packbits(np.ascontiguousarray(Xp, np.uint8), axis=1)
-                xp_pad[:M, :bits.shape[1]] = bits
-                xp_pad[M:] = xp_pad[0]
+                xp_pad = _packed_rows(Xp, self.Mp, 4 * self.Ng)
             with tracing.span("setup.matcher.upload"):
                 xp_dev = torch.from_numpy(xp_pad).to(self.device)
             self._finish_init(xp_dev)
@@ -362,8 +376,6 @@ class DeviceMatcher:
         """Build from a packed PBWT, decoding the pack3 stream a chunk of
         sites at a time (O(M * chunk) host bytes) instead of materialising
         the (M, N) haplotype matrix."""
-        if native.get_lib() is None:          # no native runtime: dense
-            return cls(p.haplotypes(), device=device)
         self = cls.__new__(cls)
         with tracing.span("setup.matcher"):
             M, N = p.M, p.N
@@ -379,10 +391,8 @@ class DeviceMatcher:
                 with tracing.span("setup.matcher.pack"):
                     Xc, a, _, pos = native.natural_cols(
                         p.yz, nc, M, a, start=pos, with_pos=True)
-                    bits = np.packbits(native.transpose_u8(Xc), axis=1)
-                    pad = np.empty((self.Mp, bits.shape[1]), np.uint8)
-                    pad[:M] = bits
-                    pad[M:] = bits[0]
+                    pad = _packed_rows(native.transpose_u8(Xc), self.Mp,
+                                       -(-nc // 8))
                 with tracing.span("setup.matcher.upload"):
                     parts.append(torch.from_numpy(pad).to(self.device))
             nb_have = sum(x.shape[1] for x in parts)
@@ -411,8 +421,8 @@ class DeviceMatcher:
         rank plane in place of the group words."""
         with tracing.span("setup.matcher.tables"):
             self.xp_words = xp_pad.view(torch.int32)          # (Mp, Ng)
-            W = _BITREV.to(self.device)[xp_pad.long()].view(torch.int32) \
-                .t().contiguous()                             # (Ng, Mp)
+            W = _reverse_bits(xp_pad).view(torch.int32).t().contiguous()
+                                                              # (Ng, Mp)
             self._tables = None
             if self.nseg == 1:
                 self.W = None

@@ -96,16 +96,18 @@ def _same(a, b):
 @pytest.mark.parametrize("seed,M,N", [(0, 1, 3), (1, 70, 9), (2, 4100, 5),
                                       (3, 333, 40)])
 def test_pack3_pack_and_unpack(seed, M, N):
+    """The port's one-column encoder, and its C runtime's panel codec
+    (encode_cols, decode_cols), against the JAX package's numpy codec."""
     Y = _sorted_columns(_panel(seed, M, N))
     Y[0] = 0                                  # one run of M: the long codes
     for y in Y:
         assert port_pack3.pack3(y) == ref_pack3.pack3(y)
-    got, want = port_pack3.pack_columns(Y), ref_pack3.pack_columns(Y)
+    got, want = port_native.encode_cols(Y), ref_pack3.pack_columns(Y)
     assert _same(got, want)
-    yz = np.frombuffer(want[0], np.uint8)
-    assert _same(port_pack3.unpack_all(yz, M, N),
-                 ref_pack3.unpack_all(yz, M, N))
-    assert np.array_equal(port_pack3.unpack_all(yz, M, N)[0], Y)
+    yz = want[0]
+    assert np.array_equal(port_native.decode_cols(yz, N, M),
+                          ref_pack3.unpack_all(yz, M, N)[0])
+    assert np.array_equal(port_native.decode_cols(yz, N, M), Y)
 
 
 # ----------------------------------------------------------------- engine
@@ -200,7 +202,7 @@ def _native_case(name, native):
         cols = tuple(c.copy() for c in native.max_within_bucketed(
             yz, 300, 50, a0))
         if name == "buckets_sort_start":
-            assert native.buckets_sort_start(*cols)
+            native.buckets_sort_start(*cols)
         return cols
     if name == "format_f4_rows":
         v = np.random.RandomState(10).random_sample((7, 30)) * 10 ** (
@@ -212,7 +214,7 @@ def _native_case(name, native):
     rows = np.random.RandomState(9).randint(0, 10**6, size=(500, 4))
     rows[::7, 3] = rows[::7, 2]               # empty matches are not printed
     out = io.BytesIO()
-    assert native.write_match_rows(rows.astype(np.int64), out)
+    native.write_match_rows(rows.astype(np.int64), out)
     return out.getvalue()
 
 
@@ -353,6 +355,34 @@ def test_native_library_is_the_ports_own():
     with open(port_native.__file__) as f:
         bound = set(re.findall(r"lib\.(\w+)\.argtypes", f.read()))
     assert exported == bound and all(hasattr(lib, n) for n in bound)
+
+
+@pytest.mark.parametrize("cause", ["missing_source", "failing_compiler"])
+def test_get_lib_raises_naming_the_cause(monkeypatch, tmp_path, cause):
+    """The port requires its host C runtime: where it cannot be built,
+    get_lib() raises RuntimeError naming the cause (a missing source, or
+    the compiler's output), and raises again at the next call without
+    building again."""
+    src = tmp_path / "pbwt_native.c"
+    want = "is missing"
+    if cause == "failing_compiler":
+        src.write_text("long f(void) { return 0; }\n")
+        cc = tmp_path / "cc"
+        cc.write_text("#!/bin/sh\necho 'no compiler in this test' >&2\n"
+                      "exit 1\n")
+        cc.chmod(0o755)
+        monkeypatch.setenv("CC", str(cc))
+        want = "no compiler in this test"
+    monkeypatch.setattr(port_native, "_SRC", str(src))
+    monkeypatch.setattr(port_native, "_SO",
+                        str(tmp_path / "build" / "_pbwt_native.so"))
+    monkeypatch.setattr(port_native, "_lib", None)
+    monkeypatch.setattr(port_native, "_tried", False)
+    monkeypatch.setattr(port_native, "build_log", "")
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match=want):
+            port_native.get_lib()
+    assert not os.path.exists(port_native._SO)
 
 
 # --------------------------------------------------------------- pbwtfile
@@ -569,15 +599,18 @@ def test_writers_match_jax_package(tmp_path, mode, name, dosage):
 
 
 def test_crand_is_glibc_rand():
-    """The port's copy of the glibc rand() stream: the first draws of the
-    unseeded generator, and the JAX package's class draw for draw."""
+    """The port's glibc rand() stream (its C runtime's): the first draws of
+    the unseeded generator, and after reset(12345) the JAX package's class
+    draw for draw."""
     import pbwt_tpu.core.crand as ref_crand
     import pbwt_tpu_torch.core.crand as port_crand
     port_crand.reset(1)
     assert [port_crand.rand() for _ in range(3)] == [1804289383, 846930886,
                                                      1681692777]
-    a, b = port_crand.GlibcRand(12345), ref_crand.GlibcRand(12345)
-    assert [a.next() for _ in range(500)] == [b.next() for _ in range(500)]
+    port_crand.reset(12345)
+    b = ref_crand.GlibcRand(12345)
+    assert [port_crand.rand() for _ in range(500)] == [b.next()
+                                                       for _ in range(500)]
     assert port_crand.RAND_MAX == ref_crand.RAND_MAX
 
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import pbwt_tpu.algos.impute as ref_impute
+import pbwt_tpu.core.native as ref_native
 import pbwt_tpu.core.pbwt as ref_pbwt
 import pbwt_tpu.core.registry as ref_registry
 import pbwt_tpu.utils as ref_utils
@@ -440,29 +441,30 @@ def site_fields(p_new, p_ref):
             [s.imputeInfo for s in p_ref.sites])
 
 
-@pytest.mark.parametrize("route", ["0", "cpu", "no_runtime"])
+@pytest.mark.parametrize("route", ["0", "cpu", "ref_numpy"])
 @pytest.mark.parametrize("seed,Mref,T,N", [(0, 40, 6, 120), (5, 300, 21, 97),
                                            (9, 600, 7, 200)])
 def test_reference_impute3_matches_jax_package(monkeypatch, route, seed, Mref,
                                                T, N):
-    """reference_impute3 of the port on its host C route, on the device
-    route (K5's twin on CPU tensors) and without the C runtime, against
-    pbwt_tpu.algos.impute's: yz, zDosage, dosageOffset, aFend, and every
-    site's refFreq and imputeInfo, exactly. On the device route a frame of
-    more than DEVICE_MIN_M haplotypes is matched by the imputer's
-    DeviceMatcher, once, and never by the host sweep; a smaller one by the
-    sweep."""
+    """reference_impute3 of the port on its host C route and on the device
+    route (K5's twin on CPU tensors) against pbwt_tpu.algos.impute's on its
+    C runtime, and on the host C route against the JAX package held to its
+    numpy routes (ref_numpy, the reference independent of the C source):
+    yz, zDosage, dosageOffset, aFend, and every site's refFreq and
+    imputeInfo, exactly. On the device route a frame of more than
+    DEVICE_MIN_M haplotypes is matched by the imputer's DeviceMatcher,
+    once, and never by the host sweep; a smaller one by the sweep."""
     from pbwt_tpu_torch.algos import match as port_match
     from pbwt_tpu_torch.ops import match as port_ops_match
     Xref, Xq, frame_idx = problem(seed, Mref, T, N)
+    if route == "ref_numpy":
+        monkeypatch.setattr(ref_native, "get_lib", lambda: None)
     po_j, pr_j, pf_j = panels(ref_pbwt, ref_registry, Xref, Xq, frame_idx)
     want = ref_impute.reference_impute3(po_j, pr_j, pf_j)
     p_old, p_ref, p_frame = panels(port_pbwt, port_registry, Xref, Xq,
                                    frame_idx)
-    if route == "no_runtime":
-        monkeypatch.setattr(port_native, "get_lib", lambda: None)
-    else:
-        monkeypatch.setenv("PBWT_TORCH_DEVICE", route)
+    monkeypatch.setenv("PBWT_TORCH_DEVICE",
+                       "0" if route == "ref_numpy" else route)
     votes, matched, swept = [], [], []
     real = port_device.impute_vote
     monkeypatch.setattr(port_device, "impute_vote",

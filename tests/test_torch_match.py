@@ -369,7 +369,8 @@ def test_rank_plane_through_port_padding(jax_matcher):
     trajectory's."""
     Xp, jm = jax_matcher
     tm = match.DeviceMatcher(Xp, device="cpu")
-    W = match._BITREV[tm.xp_words.view(torch.uint8).long()] \
+    rev = torch.tensor(match._REV8, dtype=torch.uint8)
+    W = rev[tm.xp_words.view(torch.uint8).long()] \
         .view(torch.int32).t().contiguous()
     a0 = torch.arange(tm.Mp, dtype=torch.int32)
     d0 = torch.zeros(tm.Mp, dtype=torch.int32)
