@@ -4,8 +4,9 @@ Counterpart of ``pbwt_tpu/ops/build.py:139-288``. The panel rides as 32
 future sites per int32 word; one launch of the kernel runs the 32 stable
 partitions of every group, the words aligned to the sort order with a
 gather where a group begins, and emits each site's sorted column packed 32
-rows per word and its zero count. The host pack3-encodes the sorted columns into the byte-exact
-.pbwt stream.
+rows per word and its zero count. Kernel ``k1_encode_columns`` pack3-encodes
+the packed sorted columns where they lie into the byte-exact .pbwt stream,
+and only its bytes cross to the host.
 
 Padding (as the JAX package): rows beyond M are all-ones haplotypes, which
 start at the end of the sort order and stay there under every stable
@@ -19,13 +20,12 @@ import numpy as np
 import torch
 
 from .. import tracing
-from ..core import native
 from . import kernels, resolve_device
+from .impute import _pack3_bytes
 from .partition import GROUP, ad_trajectory, group_scan
 
 DIVERGENCE_BYTES = 2 << 30     # trajectory tables of one chunk of the
                                # divergence pass
-ENCODE_SITES = 1024            # sorted columns unpacked on the host at a time
 
 
 def pad_to(M: int, multiple: int = 256) -> int:
@@ -158,15 +158,63 @@ def build_scan_grouped(W: torch.Tensor, a0: torch.Tensor,
     return ycols, counts, a_end, d_end
 
 
-def encode_columns(ycols: np.ndarray, M: int) -> bytes:
-    """pack3 bytes of packed sorted columns, ENCODE_SITES columns at a time
-    (a column's bytes do not depend on the others'), by the host C
-    runtime's column encoder."""
-    out = []
-    for c0 in range(0, len(ycols), ENCODE_SITES):
-        Y = unpack_columns(ycols[c0:c0 + ENCODE_SITES], M)
-        out.append(native.encode_cols(Y)[0])      # the C column encoder
-    return b"".join(out)
+def encode_columns_plain(ycols: torch.Tensor, M: int) -> torch.Tensor:
+    """Plain twin of :func:`encode_columns`, from the packed words as the
+    kernel works: the rows where runs start are the bits of each word XORed
+    with itself shifted up one row, the word below's top bit carried in (row
+    0 starts each site's first run), a run ends where the next starts or at
+    row M, and its bytes follow emit_run's tiers. Returns the pack3 bytes,
+    uint8 on ycols' device."""
+    n = ycols.shape[0]
+    nw = -(-M // GROUP)
+    if not n or not M:
+        return torch.empty(0, dtype=torch.uint8, device=ycols.device)
+    w = ycols[:, :nw].long() & 0xFFFFFFFF
+    below = torch.cat((w[:, :1] & 1, w[:, :-1] >> 31), 1)
+    s = w ^ (((w << 1) & 0xFFFFFFFF) | below)
+    s[:, 0] |= 1
+    bit = torch.arange(GROUP, device=ycols.device)
+    starts = ((s[:, :, None] >> bit) & 1).view(n, nw * GROUP)[:, :M]
+    site, row = torch.nonzero(starts, as_tuple=True)
+    at = site * M + row
+    length = torch.diff(at, append=at.new_tensor([n * M]))
+    sym = (w[site, row // GROUP] >> (row % GROUP)) & 1
+    vals, reps = _pack3_bytes(sym, length)
+    return torch.repeat_interleave(vals.flatten(), reps.flatten()).to(
+        torch.uint8)
+
+
+def encode_columns(ycols: torch.Tensor, M: int) -> bytes:
+    """pack3 bytes of packed sorted columns: ycols (n, ceil(Mp/32)) int32,
+    a site a row, row i at bit i % 32 of word i // 32; rows M and on are
+    not encoded. On a CUDA tensor kernel ``k1_encode_columns`` (a counting
+    pass, the offsets as a scan over the sites, a writing pass) and only the
+    bytes cross to the host, in one copy into pinned memory (PyTorch's
+    caching host allocator keeps the buffer from call to call); on a CPU
+    tensor the plain twin. The yz bytes' copy to the host is the span
+    ``ops.build.download``. The bytes of the host C runtime's column
+    encoder (``native.encode_cols``) on the unpacked columns."""
+    if not len(ycols) or not M:
+        return b""
+    if ycols.device.type == "cpu":
+        yz = encode_columns_plain(ycols, M)
+    else:
+        dev = kernels.cuda_tensors(ycols)
+        n, rw = ycols.shape
+        counts = torch.empty(n, dtype=torch.int32, device=dev)
+        args = (dev.index, ycols.data_ptr(), n, rw, M, counts.data_ptr())
+        kernels.launch("k1_encode_columns", *args, None, None,
+                       kernels.stream(dev))
+        ends = torch.cumsum(counts, 0, dtype=torch.int64)
+        offsets = ends - counts
+        yz = torch.empty(int(ends[-1]), dtype=torch.uint8, device=dev)
+        kernels.launch("k1_encode_columns", *args, offsets.data_ptr(),
+                       yz.data_ptr(), kernels.stream(dev))
+    with tracing.span("ops.build.download"):
+        if yz.is_cuda:
+            yz = torch.empty(yz.numel(), dtype=torch.uint8,
+                             pin_memory=True).copy_(yz)
+        return yz.numpy().tobytes()
 
 
 class BlockBuild:
@@ -175,14 +223,15 @@ class BlockBuild:
     a block's bytes uploaded as they are and packed into group words there
     (:func:`pack_columns`), K1 over the words, the prefix array carried on
     the card from block to block, each block's sorted columns pack3-encoded
-    as they come back. The host holds one block's columns and the encoded
-    bytes, never the panel.
+    there (:func:`encode_columns`) and only the bytes brought back. The host
+    holds one block's columns and the encoded bytes, never the panel.
 
     ``add(cols)`` takes an (n, M) uint8 block; ``finish()`` returns (yz
     bytes, aFend int32[M]), those of :func:`build_pbwt_device` on the whole
     panel. An ``add`` is the span ``ops.build.add``, its stages its children
-    (:mod:`pbwt_tpu_torch.tracing`); ``ops.build.card_packs`` counts the
-    blocks packed by the kernel.
+    (:mod:`pbwt_tpu_torch.tracing`); ``ops.build.card_packs`` and
+    ``ops.build.card_encodes`` count the blocks packed and encoded by the
+    kernels.
     """
 
     def __init__(self, M: int, device=None):
@@ -205,10 +254,10 @@ class BlockBuild:
                 tracing.count("ops.build.card_packs")
             with tracing.span("ops.build.scan"):
                 ycols, _, self.a, _ = build_scan_grouped(W, self.a)
-            with tracing.span("ops.build.download"):
-                ycols = ycols[:n].cpu().numpy()
+            if ycols.is_cuda:
+                tracing.count("ops.build.card_encodes")
             with tracing.span("ops.build.encode"):
-                self.yz.append(encode_columns(ycols, self.M))
+                self.yz.append(encode_columns(ycols[:n], self.M))
         tracing.count("ops.build.sites", n)
         tracing.count("ops.build.hap_sites", n * self.M)
         tracing.count("ops.build.yz_bytes", len(self.yz[-1]))
@@ -232,6 +281,6 @@ def build_pbwt_device(X: np.ndarray, device=None, multiple: int = 256):
     W = torch.from_numpy(pack_group_words(X, Mp)).to(dev)
     a0 = torch.arange(Mp, dtype=torch.int32, device=dev)
     ycols, counts, a_end, _ = build_scan_grouped(W, a0)
-    return (encode_columns(ycols[:N].cpu().numpy(), M),
+    return (encode_columns(ycols[:N], M),
             a_end[:M].cpu().numpy().astype(np.int32),
             counts[:N].cpu().numpy())

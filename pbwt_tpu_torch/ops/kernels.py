@@ -46,6 +46,7 @@ _SIGNATURES = {
     "k1_group_partition": [_I, _P, _L, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
                            _I, _P],
     "k1_pack_columns": [_I, _P, _I, _I, _P, _I, _P],
+    "k1_encode_columns": [_I, _P, _I, _I, _I, _P, _P, _P, _P],
     "k2_partition_ad_step": [_I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
                              _P, _L, _P, _P, _P, _I, _I, _P],
     "k2_partition_ad_columns": [_I, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P,

@@ -173,6 +173,6 @@ def build_pbwt_sharded(X: np.ndarray, group):
     W = local_words(X, group)
     sitewords, counts, a_end, _ = build_scan_sharded_grouped(
         W, group, with_divergence=False)
-    return (build.encode_columns(sitewords[:N].cpu().numpy(), M),
+    return (build.encode_columns(sitewords[:N], M),
             a_end[:M].cpu().numpy().astype(np.int32),
             counts[:N].cpu().numpy())

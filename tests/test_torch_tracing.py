@@ -248,9 +248,11 @@ def test_a_small_cap_is_counted_as_a_rerun():
 
 
 def test_block_build_spans_and_counters():
-    """A block's stages are children of its ``ops.build.add``, and the
-    counters sum the blocks. ``ops.build.card_packs`` is counted only on the
-    card, where k1_pack_columns launches: here, on the CPU, it is absent."""
+    """A block's stages are children of its ``ops.build.add``, the yz
+    bytes' download a child of its encoding, and the counters sum the
+    blocks. ``ops.build.card_packs`` and ``ops.build.card_encodes`` are
+    counted only on the card, where k1_pack_columns and k1_encode_columns
+    launch: here, on the CPU, they are absent."""
     M, N = 70, 100
     X = _panel(9, M, N)
     bb = build.BlockBuild(M, device="cpu")
@@ -262,14 +264,18 @@ def test_block_build_spans_and_counters():
     assert yz == want_yz and np.array_equal(a, want_a)
     tot, cnt = tracing.totals(), tracing.counters()
     for name in ("ops.build.add", "ops.build.pack", "ops.build.upload",
-                 "ops.build.scan", "ops.build.download", "ops.build.encode"):
+                 "ops.build.scan", "ops.build.encode"):
         assert tot[name].calls == 2, name
+    # encode_columns downloads yz, build_pbwt_device's call too
+    assert tot["ops.build.download"].calls == 3
     assert tot["ops.build.finish"].calls == 1
     assert cnt == {"ops.build.sites": N, "ops.build.hap_sites": N * M,
                    "ops.build.yz_bytes": len(yz)}
     adds = tracing.records("ops.build.add")
     enc = tracing.records("ops.build.encode")
     assert [e.parent for e in enc] == [a.id for a in adds]
+    assert [d.parent for d in tracing.records("ops.build.download")] == [
+        e.id for e in enc]
 
 
 def test_copy_model_spans_and_counter(monkeypatch):
