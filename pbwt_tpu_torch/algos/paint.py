@@ -9,7 +9,9 @@ collected on the host (the C scan into per-recipient buckets); the dense
 tables are accumulated by kernel K6 on the device engine when
 :func:`pbwt_tpu_torch.ops.device_requested` says so, else by the host C
 pass; ``outputlocal`` takes the reference's loop, which writes the
-local-ancestry file. K6 and the C pass give the same bits. -paintSparse takes
+local-ancestry file. K6 and the C pass give the same bits. A paint on the
+device route is one call of the span ``ops.paint``, its stages its children
+(``tracing``); every route returns the tables it wrote. -paintSparse takes
 the per-individual C pass and writes its five streams through zlib as
 zlib's ``gzopen("w6")`` does (:class:`_GzipStream`), byte for byte.
 """
@@ -17,6 +19,7 @@ zlib's ``gzopen("w6")`` does (:class:`_GzipStream`), byte for byte.
 from __future__ import annotations
 
 import zlib
+from contextlib import nullcontext
 
 import numpy as np
 
@@ -59,9 +62,14 @@ def _collect_match_arrays(p: PBWT):
 
 def _paint_device(p: PBWT, chunksperregion: int, ploidy: int, device=None):
     """The four tables and nregions by kernel K6 (or its twin on a named
-    CPU) from the host's segments, uploaded in report order."""
+    CPU) from the host's segments, uploaded in report order; inside the
+    caller's span ``ops.paint``."""
+    from .. import tracing
     from ..ops import paint as device_paint
-    sj, ss, se, seg_off = _collect_match_arrays(p)
+    with tracing.span("ops.paint.collect"):
+        sj, ss, se, seg_off = _collect_match_arrays(p)
+    tracing.count("ops.paint.recipients", p.M)
+    tracing.count("ops.paint.segments", len(sj))
     return device_paint.paint_tables_device(sj, ss, se, seg_off, p.M, p.N,
                                             ploidy, chunksperregion,
                                             device=device)
@@ -75,30 +83,43 @@ def _check_ploidy(p: PBWT, ploidy: int) -> None:
 
 def paint_ancestry_matrix(p: PBWT, file_root: str, chunksperregion: int = 100,
                           ploidy: int = 2, outputlocal: int = 0,
-                          device=None) -> None:
-    """paintAncestryMatrix (pbwtPaint.c:56-209)."""
+                          device=None):
+    """paintAncestryMatrix (pbwtPaint.c:56-209). Returns the tables it
+    wrote, float64 numpy arrays: (counts, totlengths, counts2, counts3)
+    (n_inds, n_inds), totlengths normalised, and nregions (n_inds,)."""
     _check_ploidy(p, ploidy)
     n_inds = p.M // ploidy
     map_ih = np.arange(p.M) // ploidy
-    if not outputlocal and device_requested():
-        counts, totlengths, counts2, counts3, nregions = _paint_device(
-            p, chunksperregion, ploidy, device)
-    elif not outputlocal:
-        counts, totlengths, counts2, counts3 = (np.zeros((n_inds, n_inds))
-                                                for _ in range(4))
-        nregions = np.zeros(n_inds)
-        sj, ss, se, seg_off = _collect_match_arrays(p)
-        native.get_lib().paint_accumulate(
-            sj, ss, se, seg_off, p.M, p.N, n_inds, ploidy, chunksperregion,
-            -1.0, counts.reshape(-1), counts2.reshape(-1),
-            counts3.reshape(-1), totlengths.reshape(-1), nregions,
-            np.zeros(n_inds))
+    on_card = not outputlocal and device_requested()
+    if on_card:
+        from .. import tracing
+        root, write = tracing.span("ops.paint"), tracing.span(
+            "ops.paint.write")
     else:
-        counts, totlengths, counts2, counts3, nregions = _paint_loop(
-            p, chunksperregion, map_ih, n_inds, outputlocal, file_root)
-    _write_tables(file_root, counts, totlengths, counts2, counts3, nregions,
-                  p.N, ploidy)
+        root = write = nullcontext()
+    with root:
+        if on_card:
+            tables = _paint_device(p, chunksperregion, ploidy, device)
+        elif not outputlocal:
+            counts, totlengths, counts2, counts3 = (
+                np.zeros((n_inds, n_inds)) for _ in range(4))
+            nregions = np.zeros(n_inds)
+            sj, ss, se, seg_off = _collect_match_arrays(p)
+            native.get_lib().paint_accumulate(
+                sj, ss, se, seg_off, p.M, p.N, n_inds, ploidy,
+                chunksperregion, -1.0, counts.reshape(-1),
+                counts2.reshape(-1), counts3.reshape(-1),
+                totlengths.reshape(-1), nregions, np.zeros(n_inds))
+            tables = counts, totlengths, counts2, counts3, nregions
+        else:
+            tables = _paint_loop(p, chunksperregion, map_ih, n_inds,
+                                 outputlocal, file_root)
+        with write:
+            nbytes = _write_tables(file_root, *tables, p.N, ploidy)
+        if on_card:
+            tracing.count("ops.paint.bytes_written", nbytes)
     time_update()
+    return tables
 
 
 def _paint_loop(p: PBWT, chunksperregion: int, map_ih: np.ndarray,
@@ -169,45 +190,33 @@ def _paint_loop(p: PBWT, chunksperregion: int, map_ih: np.ndarray,
 
 
 def _write_tables(file_root: str, counts, totlengths, counts2, counts3,
-                  nregions, N: int, ploidy: int) -> None:
-    """Normalise the chunk lengths a recipient and write the four tables
-    (pbwtPaint.c:162-208)."""
+                  nregions, N: int, ploidy: int) -> int:
+    """Normalise the chunk lengths a recipient in place and write the four
+    tables (pbwtPaint.c:162-208); returns the bytes written."""
     n_inds = len(nregions)
     for i in range(n_inds):
         indsum = totlengths[i].sum()
         if indsum:
             totlengths[i] = totlengths[i] / indsum * N * ploidy
 
-    fc = fopen_tag(file_root, "chunkcounts.out", "w")
-    fl = fopen_tag(file_root, "chunklengths.out", "w")
-    fc2 = fopen_tag(file_root, "regionsquaredchunkcounts.out", "w")
-    fc3 = fopen_tag(file_root, "regionchunkcounts.out", "w")
-    fc.write("RECIPIENT")
-    fl.write("RECIPIENT")
-    fc2.write("RECIPIENT nregions")
-    fc3.write("RECIPIENT nregions")
-    for i in range(n_inds):
-        for f in (fc, fl, fc2, fc3):
-            f.write(f" IND{i + 1}")
-    for f in (fc, fl, fc2, fc3):
-        f.write("\n")
-    # all four tables formatted in four C calls
-    rows_c, rows_l, rows_2, rows_3 = (
-        native.format_f4_rows(t) for t in (counts, totlengths, counts2,
-                                           counts3))
-    for i in range(n_inds):
-        fc3.write(f"IND{i + 1} {nregions[i]:.2f}")
-        fc2.write(f"IND{i + 1} {nregions[i]:.2f}")
-        fl.write(f"IND{i + 1}")
-        fc.write(f"IND{i + 1}")
-        fc.write(rows_c[i])
-        fl.write(rows_l[i])
-        fc2.write(rows_2[i])
-        fc3.write(rows_3[i])
-        for f in (fc, fl, fc2, fc3):
-            f.write("\n")
-    for f in (fc, fl, fc2, fc3):
-        f.close()
+    names = b"".join(b" IND%d" % (i + 1) for i in range(n_inds)) + b"\n"
+    inds = [b"IND%d" % (i + 1) for i in range(n_inds)]
+    regions = [b"IND%d %.2f" % (i + 1, nregions[i]) for i in range(n_inds)]
+    nbytes = 0
+    for tag, table, head, heads in (
+            ("chunkcounts.out", counts, b"RECIPIENT", inds),
+            ("chunklengths.out", totlengths, b"RECIPIENT", inds),
+            ("regionsquaredchunkcounts.out", counts2, b"RECIPIENT nregions",
+             regions),
+            ("regionchunkcounts.out", counts3, b"RECIPIENT nregions",
+             regions)):
+        # a table's values formatted in one C call, its rows written from
+        # that buffer through a buffer of 1 MiB
+        with fopen_tag(file_root, tag, "wb", buffering=1 << 20) as f:
+            f.write(head + names)
+            native.write_f4_rows(table, heads, f)
+            nbytes += f.tell()
+    return nbytes
 
 
 class _GzipStream:

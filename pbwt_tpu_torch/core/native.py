@@ -687,10 +687,10 @@ def format_f4_row(vals: np.ndarray):
     return buf.raw[:n].decode()
 
 
-def format_f4_rows(table: np.ndarray):
-    """Whole (R, C) table as per-row ' %.4f' strings in ONE native call
-    (the per-row ctypes overhead dominated -paint's emitters).  Returns a
-    list of R strings."""
+def _format_f4(table: np.ndarray):
+    """Whole (R, C) table as ' %.4f' per value in ONE native call (the
+    per-row ctypes overhead dominated -paint's emitters): the pooled
+    bytes, and the R + 1 row offsets into them as a list."""
     lib = get_lib()
     table = np.ascontiguousarray(table, np.float64)
     R, C = table.shape
@@ -698,8 +698,25 @@ def format_f4_rows(table: np.ndarray):
     offs = np.empty(R + 1, np.int64)
     lib.format_f4_rows(table.reshape(-1), R, C,
                        buf.ctypes.data_as(ctypes.c_char_p), offs)
-    raw = bytes(buf[:offs[R]])
-    return [raw[offs[r]:offs[r + 1]].decode() for r in range(R)]
+    return memoryview(buf), offs.tolist()
+
+
+def format_f4_rows(table: np.ndarray):
+    """Whole (R, C) table as a list of R per-row ' %.4f' strings."""
+    raw, offs = _format_f4(table)
+    return [str(raw[offs[r]:offs[r + 1]], "ascii")
+            for r in range(len(offs) - 1)]
+
+
+def write_f4_rows(table: np.ndarray, heads, f) -> None:
+    """Write the (R, C) table to the binary file f as R lines: heads[r]
+    (bytes), the row's ' %.4f' values, a newline. The values go from the
+    pooled buffer to the file with no string made of them."""
+    raw, offs = _format_f4(table)
+    for r, head in enumerate(heads):
+        f.write(head)
+        f.write(raw[offs[r]:offs[r + 1]])
+        f.write(b"\n")
 
 
 def impute_vote_emit(yzref: bytes, Mref: int, Nref: int, a_ref0: np.ndarray,

@@ -24,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from . import kernels, resolve_device
 from .partition import _segmented_cummax
 
@@ -92,7 +93,10 @@ def paint_accumulate_plain(seg_off, sj, ss, se, M: int, N: int, ploidy: int,
     pair at once for a batch of recipient haplotypes, the normalisers summed
     a (haplotype, site) with ``index_add_``, and the region sums a (closed
     region, donor individual). f64 in another order than the host's: the
-    normalisers are exact (sums of integers), the tables close."""
+    normalisers are exact (sums of integers), the tables close. Its two
+    stages are the spans ``ops.paint.prepare`` (the windows and closes)
+    and ``ops.paint.k6`` (the sums); it counts the intervals and cells that
+    :func:`prepare` makes, from its own windows."""
     dev = sj.device
     f64 = torch.float64
     n_inds = M // ploidy
@@ -100,67 +104,77 @@ def paint_accumulate_plain(seg_off, sj, ss, se, M: int, N: int, ploidy: int,
               for _ in range(4)]
     counts, totlengths, counts2, counts3 = tables
     nregions = torch.zeros(n_inds, dtype=f64, device=dev)
-    rec, pos, last, k0, k1, t0 = _windows(seg_off, ss, se, N)
-    s, e = ss.long(), se.long()
-    ind = sj.long() // ploidy
-    me = rec // ploidy
-    live, tail = _pair_counts(last, k0, k1, t0, ind != me, N)
-    npairs = live + tail
-    # a region closes at the site of every cpr-th advance of the window
-    close = (((pos + 1) % cpr) == 0) & ~last & (e.clamp(min=1) <= N - 1)
-    ncl = torch.zeros(M, dtype=torch.long, device=dev)
-    ncl.index_add_(0, rec[close], torch.ones_like(rec[close]))
-    nregions.index_add_(0, torch.arange(n_inds * ploidy, device=dev)
-                        // ploidy, ncl[:n_inds * ploidy].to(f64))
-
-    per_hap = torch.zeros(M, dtype=torch.long, device=dev)
-    per_hap.index_add_(0, rec, npairs)
-    weight = (per_hap + ncl * n_inds + N).cpu().numpy()
-    off = seg_off.cpu().numpy()
-    for h0, h1 in _batches(weight, TWIN_ELEMENTS):
-        r0, r1 = int(off[h0]), int(off[h1])
-        if r1 == r0:
-            continue
-        R = torch.arange(r0, r1, device=dev)
-        L = npairs[r0:r1]
-        P = int(L.sum())
-        hl = rec[r0:r1] - h0
-        nh = h1 - h0
-        # this batch's closed regions: their sites, in order, a haplotype
-        cb = close[r0:r1]
-        marks = torch.zeros((nh, N + 1), dtype=torch.long, device=dev)
-        marks.index_put_((hl[cb], e[r0:r1][cb].clamp(min=1)),
-                         torch.ones_like(hl[cb]), accumulate=True)
-        region = marks.cumsum(1)                      # closes at sites <= k
-        ncl_b = ncl[h0:h1]
-        rbase = torch.cumsum(ncl_b, 0) - ncl_b
-        part = torch.zeros((int(ncl_b.sum()), n_inds), dtype=f64, device=dev)
-        if P:
-            seg = torch.repeat_interleave(R, L, output_size=P)
-            at = torch.arange(P, device=dev) - (torch.cumsum(L, 0) - L)[
-                seg - r0]
-            lv = live[seg]
-            k = torch.where(at < lv, k0[seg] + at, t0[seg] + at - lv)
-            hp = rec[seg] - h0
-            w = ((k - s[seg]) * (e[seg] - k)).to(f64)
-            ssum = torch.zeros(nh * N, dtype=f64, device=dev)
-            ssum.index_add_(0, hp * N + k, w)
-            ssum = ssum[hp * N + k]
-            ok = ssum != 0
-            wn = torch.where(ok, w / ssum, 0.0)
-            tc = torch.where(ok, wn / (e[seg] - s[seg]).to(f64), 0.0)
-            cell = me[seg] * n_inds + ind[seg]
-            totlengths.view(-1).index_add_(0, cell, wn)
-            counts.view(-1).index_add_(0, cell, tc)
-            reg = region[hp, k]
-            shut = reg < ncl_b[hp]
-            part.view(-1).index_add_(
-                0, ((rbase[hp] + reg) * n_inds + ind[seg])[shut], tc[shut])
-        owner = (h0 + torch.repeat_interleave(
-            torch.arange(nh, device=dev), ncl_b,
-            output_size=part.shape[0])) // ploidy
-        counts2.index_add_(0, owner, part * part)
-        counts3.index_add_(0, owner, part)
+    with tracing.span("ops.paint.prepare"):
+        rec, pos, last, k0, k1, t0 = _windows(seg_off, ss, se, N)
+        s, e = ss.long(), se.long()
+        ind = sj.long() // ploidy
+        me = rec // ploidy
+        live, tail = _pair_counts(last, k0, k1, t0, ind != me, N)
+        npairs = live + tail
+        # a region closes at the site of every cpr-th advance of the window
+        close = (((pos + 1) % cpr) == 0) & ~last & (e.clamp(min=1) <= N - 1)
+        ncl = torch.zeros(M, dtype=torch.long, device=dev)
+        ncl.index_add_(0, rec[close], torch.ones_like(rec[close]))
+        nregions.index_add_(0, torch.arange(n_inds * ploidy, device=dev)
+                            // ploidy, ncl[:n_inds * ploidy].to(f64))
+        per_hap = torch.zeros(M, dtype=torch.long, device=dev)
+        per_hap.index_add_(0, rec, npairs)
+        weight = (per_hap + ncl * n_inds + N).cpu().numpy()
+        off = seg_off.cpu().numpy()
+        # an interval is a segment with a weighed pair; a cell, a
+        # (recipient, donor) individual pair with one
+        weighed = npairs > 0
+        tracing.count("ops.paint.intervals", int(weighed.sum()))
+        tracing.count("ops.paint.cells", torch.unique(
+            (me * n_inds + ind)[weighed]).numel())
+    with tracing.span("ops.paint.k6"):
+        for h0, h1 in _batches(weight, TWIN_ELEMENTS):
+            r0, r1 = int(off[h0]), int(off[h1])
+            if r1 == r0:
+                continue
+            R = torch.arange(r0, r1, device=dev)
+            L = npairs[r0:r1]
+            P = int(L.sum())
+            hl = rec[r0:r1] - h0
+            nh = h1 - h0
+            # this batch's closed regions: their sites, in order, a
+            # haplotype
+            cb = close[r0:r1]
+            marks = torch.zeros((nh, N + 1), dtype=torch.long, device=dev)
+            marks.index_put_((hl[cb], e[r0:r1][cb].clamp(min=1)),
+                             torch.ones_like(hl[cb]), accumulate=True)
+            region = marks.cumsum(1)                  # closes at sites <= k
+            ncl_b = ncl[h0:h1]
+            rbase = torch.cumsum(ncl_b, 0) - ncl_b
+            part = torch.zeros((int(ncl_b.sum()), n_inds), dtype=f64,
+                               device=dev)
+            if P:
+                seg = torch.repeat_interleave(R, L, output_size=P)
+                at = torch.arange(P, device=dev) - (torch.cumsum(L, 0) - L)[
+                    seg - r0]
+                lv = live[seg]
+                k = torch.where(at < lv, k0[seg] + at, t0[seg] + at - lv)
+                hp = rec[seg] - h0
+                w = ((k - s[seg]) * (e[seg] - k)).to(f64)
+                ssum = torch.zeros(nh * N, dtype=f64, device=dev)
+                ssum.index_add_(0, hp * N + k, w)
+                ssum = ssum[hp * N + k]
+                ok = ssum != 0
+                wn = torch.where(ok, w / ssum, 0.0)
+                tc = torch.where(ok, wn / (e[seg] - s[seg]).to(f64), 0.0)
+                cell = me[seg] * n_inds + ind[seg]
+                totlengths.view(-1).index_add_(0, cell, wn)
+                counts.view(-1).index_add_(0, cell, tc)
+                reg = region[hp, k]
+                shut = reg < ncl_b[hp]
+                part.view(-1).index_add_(
+                    0, ((rbase[hp] + reg) * n_inds + ind[seg])[shut],
+                    tc[shut])
+            owner = (h0 + torch.repeat_interleave(
+                torch.arange(nh, device=dev), ncl_b,
+                output_size=part.shape[0])) // ploidy
+            counts2.index_add_(0, owner, part * part)
+            counts3.index_add_(0, owner, part)
     return counts, totlengths, counts2, counts3, nregions
 
 
@@ -284,11 +298,12 @@ def paint_accumulate(seg_off, sj, ss, se, M: int, N: int, ploidy: int,
     ``paint_accumulate`` writes with no length cutoff, before the lengths
     are normalised.
 
-    On the card, :func:`prepare` makes the intervals, cells and closes;
-    one call of the kernel entry sums the normalisers of every (haplotype,
-    site) into an (M, N) f64 scratch and then walks the cells, a thread a
-    cell, each storing its four sums once (cells without a weighed pair
-    stay 0).
+    On the card, :func:`prepare` makes the intervals, cells and closes
+    (the span ``ops.paint.prepare``); one call of the kernel entry (the
+    span ``ops.paint.k6``, its enqueue) sums the normalisers of every
+    (haplotype, site) into an (M, N) f64 scratch and then walks the cells,
+    a thread a cell, each storing its four sums once (cells without a
+    weighed pair stay 0). On CPU tensors the twin takes its place.
     """
     if sj.device.type == "cpu":
         return paint_accumulate_plain(seg_off, sj, ss, se, M, N, ploidy, cpr)
@@ -299,12 +314,17 @@ def paint_accumulate(seg_off, sj, ss, se, M: int, N: int, ploidy: int,
             or se.numel() != sj.numel() or cpr < 1 or ploidy < 1):
         raise ValueError("paint_accumulate: inconsistent shapes")
     n_inds = M // ploidy
-    prep = prepare(seg_off, sj, ss, se, M, N, ploidy, cpr)
-    ssum = torch.empty((M, N), dtype=f64, device=dev)
-    tables = [torch.zeros((n_inds, n_inds), dtype=f64, device=dev)
-              for _ in range(4)]
-    kernels.launch("k6_paint_accumulate",
-                   *k6_arguments(dev, M, N, prep, ssum, tables))
+    with tracing.span("ops.paint.prepare"):
+        prep = prepare(seg_off, sj, ss, se, M, N, ploidy, cpr)
+    # both sizes are on the host: nonzero and unique_consecutive waited
+    tracing.count("ops.paint.intervals", prep.hap_iv.shape[0])
+    tracing.count("ops.paint.cells", prep.cell_key.numel())
+    with tracing.span("ops.paint.k6"):
+        ssum = torch.empty((M, N), dtype=f64, device=dev)
+        tables = [torch.zeros((n_inds, n_inds), dtype=f64, device=dev)
+                  for _ in range(4)]
+        kernels.launch("k6_paint_accumulate",
+                       *k6_arguments(dev, M, N, prep, ssum, tables))
     return (*tables, prep.nregions)
 
 
@@ -335,5 +355,8 @@ def paint_tables_device(sj, ss, se, seg_off, M: int, N: int, ploidy: int,
             raise ValueError(f"-paint's tables need {need} bytes of device "
                              f"memory and {free} are free: use -paintSparse, "
                              "or the host (PBWT_TORCH_DEVICE=0)")
-    cols = upload_segments(sj, ss, se, seg_off, dev)
-    return download_tables(paint_accumulate(*cols, M, N, ploidy, cpr))
+    with tracing.span("ops.paint.upload"):
+        cols = upload_segments(sj, ss, se, seg_off, dev)
+    tables = paint_accumulate(*cols, M, N, ploidy, cpr)
+    with tracing.span("ops.paint.download"):        # waits for K6
+        return download_tables(tables)

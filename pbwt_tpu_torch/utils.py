@@ -44,9 +44,9 @@ def time_update(file=None) -> None:
     _last_rss = ru.ru_maxrss
 
 
-def fopen_tag(root: str, tag: str, mode: str):
+def fopen_tag(root: str, tag: str, mode: str, buffering: int = -1):
     """fopenTag (utils.c:80-90): open root.tag."""
-    return open(f"{root}.{tag}", mode)
+    return open(f"{root}.{tag}", mode, buffering)
 
 
 def c_f(v: float, prec: int = 4) -> str:
