@@ -5,7 +5,8 @@ Counterpart of ``pbwt_tpu/algos/paint.py``. Co-ancestry chunk counts and
 lengths from the maximal within-panel matches with (k-start)*(end-k)
 positional weighting, region-binned squared counts, and the SparsePainter
 streaming variant (Yang et al., Nat Comms 16:2742, 2025). The matches are
-collected on the host (the C scan into per-recipient buckets); the dense
+collected on the host (the C scan into per-recipient buckets), or on a card
+by kernels K2 and K9 where the dense tables go there; the dense
 tables are accumulated by kernel K6 on the device engine when
 :func:`pbwt_tpu_torch.ops.device_requested` says so, else by the host C
 pass; ``outputlocal`` takes the reference's loop, which writes the
@@ -62,12 +63,23 @@ def _collect_match_arrays(p: PBWT):
 
 def _paint_device(p: PBWT, chunksperregion: int, ploidy: int, device=None):
     """The four tables and nregions by kernel K6 (or its twin on a named
-    CPU) from the host's segments, uploaded in report order; inside the
-    caller's span ``ops.paint``."""
+    CPU) from the panel's segments in report order; inside the caller's
+    span ``ops.paint``. On a card the segments are collected there
+    (``ops/paint.collect_matches``: the pack3 bytes decoded, K2's (a, d)
+    of every site, K9's two passes; counted by ``ops.paint.card_collects``);
+    on a CPU device, or for a panel without pack3 bytes or of fewer than
+    two haplotypes, by the host C pass, and uploaded."""
     from .. import tracing
     from ..ops import paint as device_paint
+    from ..ops import resolve_device
+    dev = resolve_device(device)
     with tracing.span("ops.paint.collect"):
-        sj, ss, se, seg_off = _collect_match_arrays(p)
+        if dev.type == "cuda" and p.yz and p.M >= 2:
+            sj, ss, se, seg_off = device_paint.collect_matches(
+                p.yz, p.M, p.N, p.aFstart, dev)
+            tracing.count("ops.paint.card_collects")
+        else:
+            sj, ss, se, seg_off = _collect_match_arrays(p)
     tracing.count("ops.paint.recipients", p.M)
     tracing.count("ops.paint.segments", len(sj))
     return device_paint.paint_tables_device(sj, ss, se, seg_off, p.M, p.N,

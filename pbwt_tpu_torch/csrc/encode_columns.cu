@@ -1,5 +1,5 @@
 // pack3 encoding of K1's sorted columns on the card: k1_encode_columns of
-// pbwt_tpu_torch.
+// pbwt_tpu_torch, and its inverse k1_decode_columns (see its note below).
 //
 // Replaces no TPU kernel: the JAX package downloads the sorted columns and
 // encodes them on the host (pbwt_tpu/core/native.py, encode_cols), as the port
@@ -40,6 +40,7 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -190,6 +191,71 @@ __global__ void __launch_bounds__(32 * ENC_WARPS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// k1_decode_columns: pack3 bytes into packed sorted columns on the card, the
+// inverse of k1_encode_columns and the columns of p3_decode_cols
+// (csrc/pbwt_native.c), a bit a row in K1's ycols layout (row i of a site at
+// bit i % 32 of word i / 32, the rows from m on 0), which K2 reads.
+//
+// Replaces no TPU kernel: the JAX package decodes on the host
+// (p3_decode_cols), as the port did before painting collected its matches
+// on the card. A byte codes a run of rows of one symbol (its top bit) within
+// one site: the encoder never lets a run cross a site's end. So a byte's
+// first row, counted over the whole stream, gives its site and row, and the
+// bytes are independent once those are known: a pass writes each byte's
+// row count, the wrapper's scan over the bytes (torch's cumsum) gives the
+// first rows, and a second pass, a thread a byte, writes the ones runs into
+// the zeroed columns: words the run covers whole by plain stores, the words
+// at its ends by atomicOr, as other runs share them. Bytes past the N sites'
+// rows are not read, as p3_decode_cols stops after N sites; a byte that
+// crosses a site's end, or a stream that ends before N sites, sets the error
+// word (p3_decode_cols' -1), which the wrapper reads and raises on.
+//
+// Bound on the H100: bytes. A paint of 5,008 x 16,384 reads 5.9 MB of pack3
+// and writes 10.3 MB of columns, a few microseconds at 3.35 TB/s; the row
+// counts and first rows (12 B a byte) add 71 MB.
+
+constexpr int DEC_THREADS = 256;
+
+// emit_run's inverse: the rows of a pack3 byte (p3dec of pbwt_native.c)
+__device__ __forceinline__ int byte_rows(unsigned b) {
+  b &= 0x7fu;
+  return b < 64u ? (int)b : b < 96u ? (int)(b - 64u) << 6 : (int)(b - 96u) << 11;
+}
+
+__global__ void __launch_bounds__(DEC_THREADS)
+    decode_columns_kernel(const unsigned char* __restrict__ yz, long long nz, int nsites, int m,
+                          int rw, int* __restrict__ rows, const long long* __restrict__ first,
+                          unsigned* __restrict__ ycols, int* __restrict__ err) {
+  const long long j = (long long)blockIdx.x * DEC_THREADS + threadIdx.x;
+  if (j >= nz) return;
+  const unsigned b = yz[j];
+  const int n = byte_rows(b);
+  if (!first) {
+    rows[j] = n;
+    return;
+  }
+  const long long at = first[j], total = (long long)nsites * m;
+  if (j == nz - 1 && at + n < total) atomicExch(err, 1);  // the stream ends early
+  if (at >= total) return;
+  const int site = (int)(at / m), r0 = (int)(at - (long long)site * m);
+  if (r0 + n > m) {  // a run across a site's end
+    atomicExch(err, 1);
+    return;
+  }
+  if (!(b >> 7) || !n) return;
+  unsigned* col = ycols + (size_t)site * rw;
+  const int r1 = r0 + n;  // one past the run's last row
+  for (int w = r0 >> 5; w <= (r1 - 1) >> 5; ++w) {
+    const int lo = max(r0 - 32 * w, 0), hi = min(r1 - 32 * w, 32);
+    const unsigned mask = (hi == 32 ? FULL : (1u << hi) - 1u) & (FULL << lo);
+    if (mask == FULL)
+      col[w] = FULL;
+    else
+      atomicOr(col + w, mask);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -216,6 +282,26 @@ int k1_encode_columns(int device, const int* ycols, int n, int rw, int m, int* c
     auto kernel = vec ? encode_columns_kernel<false, true> : encode_columns_kernel<false, false>;
     kernel<<<blocks, 32 * ENC_WARPS, 0, st>>>(words, n, rw, m, counts, offsets, yz);
   }
+  return (int)cudaGetLastError();
+}
+
+// The columns of the first nsites sites of a pack3 stream of m rows a site:
+// yz holds nz bytes. With first null: rows (nz,) int32 takes each byte's row
+// count. Else first (nz,) int64, the rows before each byte (exclusive sums
+// of the counts), and the ones runs are written into ycols (nsites rows of rw
+// int32 words, rw * 32 >= m, zeroed by the caller); err (one int, zeroed)
+// is set where the stream is not nsites sites of m rows.
+int k1_decode_columns(int device, const unsigned char* yz, long long nz, int nsites, int m,
+                      int rw, int* rows, const long long* first, int* ycols, int* err,
+                      void* stream) {
+  if (nz < 0 || nsites < 0 || m < 0 || (long long)rw * 32 < m) return (int)cudaErrorInvalidValue;
+  if (nz == 0 || m == 0) return 0;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (nz + DEC_THREADS - 1) / DEC_THREADS;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  decode_columns_kernel<<<(unsigned)blocks, DEC_THREADS, 0, (cudaStream_t)stream>>>(
+      yz, nz, nsites, m, rw, rows, first, reinterpret_cast<unsigned*>(ycols), err);
   return (int)cudaGetLastError();
 }
 

@@ -23,7 +23,9 @@
 // (the sharded build's replicated divergence, pbwt_tpu/parallel/sharding.py
 // :79-91): site r's key of row i is bit i % 32 of word i / 32 of column r, so
 // nothing is gathered through a; (a, d) ping-pong through two planes and no
-// table, count or word is written.
+// table, count or word is written. Its entry k2_partition_ad_table takes the
+// same keys and writes every site's (a, d) as rows of two tables, which
+// painting's within-panel match collection (csrc/max_within.cu) reads.
 //
 // Bound on the H100: the sites are a chain (site k+1 reads the order that site
 // k scattered), and every plane of one site (0.3-3 MB at 65k-100k rows) lives
@@ -754,6 +756,37 @@ int k2_partition_ad_columns(int device, const int* keys, int rw, const int* a_in
   p.d_out = d_pp;
   p.a_stride = (size_t)n;
   p.a_mod = 2;
+  p.keys = reinterpret_cast<const unsigned*>(keys);
+  p.keys_rw = rw;
+  p.scratch = scratch;
+  return dispatch<true>(p, items, max_blocks, (cudaStream_t)stream);
+}
+
+// K2 over nsites chained sites in one launch, the keys from packed sorted
+// columns as k2_partition_ad_columns takes them, written as tables: site r
+// is global site kk0 + r, reads row r of a_tab and d_tab (rows n ints apart)
+// and writes row r + 1, so that row r holds (a, d) before site kk0 + r (d
+// without the d[n] sentinel; row 0 is the caller's). No zero-rank table,
+// count or word is written. items, max_blocks: the launch's rows a thread
+// and cap on its grid, as the other entries take them (0: chosen there).
+int k2_partition_ad_table(int device, const int* keys, int rw, int* a_tab, int* d_tab, int n,
+                          int nsites, int kk0, int* scratch, int items, int max_blocks,
+                          void* stream) {
+  if (n <= 0 || nsites <= 0) return 0;
+  if (n > INT_MAX - 4096 || nsites > MAX_SITES || !keys || rw < (n + 31) / 32)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Params p = {};
+  p.n = n;
+  p.nsites = nsites;
+  p.kk0 = kk0;
+  p.a_in0 = a_tab;
+  p.a_out = a_tab + n;
+  p.d_in0 = d_tab;
+  p.d_out = d_tab + n;
+  p.a_stride = (size_t)n;
+  p.a_mod = INT_MAX;
   p.keys = reinterpret_cast<const unsigned*>(keys);
   p.keys_rw = rw;
   p.scratch = scratch;

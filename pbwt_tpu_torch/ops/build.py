@@ -6,7 +6,8 @@ partitions of every group, the words aligned to the sort order with a
 gather where a group begins, and emits each site's sorted column packed 32
 rows per word and its zero count. Kernel ``k1_encode_columns`` pack3-encodes
 the packed sorted columns where they lie into the byte-exact .pbwt stream,
-and only its bytes cross to the host.
+and only its bytes cross to the host; ``k1_decode_columns`` turns such a
+stream back into packed sorted columns on the card.
 
 Padding (as the JAX package): rows beyond M are all-ones haplotypes, which
 start at the end of the sort order and stay there under every stable
@@ -215,6 +216,76 @@ def encode_columns(ycols: torch.Tensor, M: int) -> bytes:
             yz = torch.empty(yz.numel(), dtype=torch.uint8,
                              pin_memory=True).copy_(yz)
         return yz.numpy().tobytes()
+
+
+def _byte_rows(yz: torch.Tensor) -> torch.Tensor:
+    """The rows each pack3 byte codes (p3dec of the host C runtime), int64:
+    b, (b - 64) << 6 and (b - 96) << 11 of its low seven bits."""
+    b = (yz & 0x7F).long()
+    return torch.where(b < 64, b, torch.where(b < 96, (b - 64) << 6,
+                                              (b - 96) << 11))
+
+
+def _malformed(N: int, M: int) -> ValueError:
+    return ValueError(f"decode_columns: the pack3 stream is not {N} sites "
+                      f"of {M} rows")
+
+
+def decode_columns_plain(yz: torch.Tensor, N: int, M: int) -> torch.Tensor:
+    """Plain twin of :func:`decode_columns`, by each byte's first row as
+    the kernel finds it: the exclusive sums of the bytes' rows give its
+    site and row; the bytes of the N sites' rows are run out into a byte a
+    row and packed 32 rows a word."""
+    dev = yz.device
+    rw, total = -(-M // GROUP), N * M
+    n = _byte_rows(yz)
+    first = torch.cumsum(n, 0) - n
+    within = first < total
+    if total and (not yz.numel() or int(first[-1] + n[-1]) < total or bool(
+            (within & ((first % M) + n > M)).any())):
+        raise _malformed(N, M)
+    rows = torch.zeros((N, rw * GROUP), dtype=torch.int64, device=dev)
+    if total:
+        rows[:, :M] = torch.repeat_interleave(
+            (yz[within] >> 7).long(), n[within]).view(N, M)
+    shifts = torch.arange(GROUP, dtype=torch.int64, device=dev)
+    v = (rows.view(N, rw, GROUP) << shifts).sum(2)
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def decode_columns(yz: torch.Tensor, N: int, M: int) -> torch.Tensor:
+    """The packed sorted columns of the first N sites of a pack3 stream of M
+    rows a site, the inverse of :func:`encode_columns`: (N, ceil(M/32))
+    int32, row i of a site at bit i % 32 of word i // 32 (rows M and on 0).
+    yz: the stream's bytes, a uint8 tensor. On a CUDA tensor kernel
+    ``k1_decode_columns`` (a pass of each byte's rows, their exclusive sums
+    as a scan over the bytes, a pass that writes the ones runs); on a CPU
+    tensor the plain twin. Raises ValueError, as the host C runtime's
+    ``p3_decode_cols`` returns -1, where the stream is not N sites of M rows
+    (a run across a site's end, or too few bytes); bytes past them are not
+    read."""
+    if yz.device.type == "cpu":
+        return decode_columns_plain(yz, N, M)
+    dev = yz.device
+    if yz.dtype != torch.uint8 or not yz.is_contiguous():
+        raise ValueError("decode_columns: wanted contiguous uint8 bytes")
+    nz, rw = yz.numel(), -(-M // GROUP)
+    ycols = torch.zeros((N, rw), dtype=torch.int32, device=dev)
+    if not N * M:
+        return ycols
+    if not nz:
+        raise _malformed(N, M)
+    rows = torch.empty(nz, dtype=torch.int32, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    args = (dev.index, yz.data_ptr(), nz, N, M, rw, rows.data_ptr())
+    kernels.launch("k1_decode_columns", *args, None, None, None,
+                   kernels.stream(dev))
+    first = torch.cumsum(rows, 0, dtype=torch.int64) - rows
+    kernels.launch("k1_decode_columns", *args, first.data_ptr(),
+                   ycols.data_ptr(), err.data_ptr(), kernels.stream(dev))
+    if int(err):
+        raise _malformed(N, M)
+    return ycols
 
 
 class BlockBuild:

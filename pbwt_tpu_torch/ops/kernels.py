@@ -47,10 +47,13 @@ _SIGNATURES = {
                            _I, _P],
     "k1_pack_columns": [_I, _P, _I, _I, _P, _I, _P],
     "k1_encode_columns": [_I, _P, _I, _I, _I, _P, _P, _P, _P],
+    "k1_decode_columns": [_I, _P, _L, _I, _I, _I, _P, _P, _P, _P, _P],
     "k2_partition_ad_step": [_I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
                              _P, _L, _P, _P, _P, _I, _I, _P],
     "k2_partition_ad_columns": [_I, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P,
                                 _I, _I, _P],
+    "k2_partition_ad_table": [_I, _P, _I, _P, _P, _I, _I, _I, _P, _I, _I,
+                              _P],
     "k3_rank_plane": [_I, _P, _P, _I, _I, _P, _P],
     "k3_match_scan": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P, _I, _P, _P],
@@ -65,10 +68,13 @@ _SIGNATURES = {
     "k8_sums": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "k8_chain": [_I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "k8_encode": [_I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "k9_max_within": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                      _P, _P],
 }
 
 # entries that launch another entry's kernel, counted under its name
-_KERNEL_OF = {"k2_partition_ad_columns": "k2_partition_ad_step"}
+_KERNEL_OF = {"k2_partition_ad_columns": "k2_partition_ad_step",
+              "k2_partition_ad_table": "k2_partition_ad_step"}
 
 # kernel name -> number of wrapper calls that launched it
 LAUNCHES = dict.fromkeys((k for k in _SIGNATURES if k not in _KERNEL_OF), 0)

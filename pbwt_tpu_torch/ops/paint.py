@@ -25,10 +25,12 @@ import numpy as np
 import torch
 
 from .. import tracing
-from . import kernels, resolve_device
-from .partition import _segmented_cummax
+from . import build, kernels, partition, resolve_device
+from .partition import GROUP, _segmented_cummax
 
 TWIN_ELEMENTS = 1 << 24     # (segment, site) pairs a step of the plain twin
+COLLECT_BYTES = 2 << 30     # the collection's tables of a chunk of sites:
+                            # A, D and the counts, 12 B a (site, haplotype)
 
 
 def _windows(seg_off, ss, se, N: int):
@@ -264,14 +266,20 @@ def prepare(seg_off, sj, ss, se, M: int, N: int, ploidy: int,
         ncl.view(n_inds, ploidy).sum(1).to(torch.float64))
 
 
+def segment_bytes(M: int, nseg: int) -> int:
+    """Device bytes of the segments: sj, ss, se and seg_off."""
+    return 12 * nseg + 8 * (M + 1)
+
+
 def device_bytes(M: int, N: int, ploidy: int, nseg: int) -> int:
     """Device memory :func:`paint_tables_device` takes at most: the
-    tables, the segments, the normalisers (8 B a haplotype a site), the
-    intervals and cells of :class:`Prepared` (at most nseg + M intervals,
-    56 B each with their cells) and the int64 columns :func:`prepare` makes
-    on the way (16 an interval)."""
+    segments (:func:`segment_bytes`; on a card they are already there, the
+    collection's scratch freed), the tables, the normalisers (8 B a
+    haplotype a site), the intervals and cells of :class:`Prepared` (at
+    most nseg + M intervals, 56 B each with their cells) and the int64
+    columns :func:`prepare` makes on the way (16 an interval)."""
     n_inds, niv = M // ploidy, nseg + M
-    return (8 * (4 * n_inds * n_inds + n_inds) + 12 * nseg + 8 * (M + 1)
+    return (8 * (4 * n_inds * n_inds + n_inds) + segment_bytes(M, nseg)
             + 8 * M * N + 56 * niv + 4 * nseg + 16 * (M + 1) + 128 * niv)
 
 
@@ -328,6 +336,231 @@ def paint_accumulate(seg_off, sj, ss, se, M: int, N: int, ploidy: int,
     return (*tables, prep.nregions)
 
 
+def _extents(A, D, ycols, k0: int, N: int):
+    """Each (site k0 + r, position i)'s report as max_within_impl's scan
+    makes it, for every r and i at once, the scans stepped together: the
+    rows [lo, i) above i (from d[i]) and (i, hi) below it (from d[i+1]),
+    none (hi - lo - 1 = 0) where an allele stopped a scan. Returns (lo, hi,
+    d[i], d[i+1]) as (nk, M) int64, nk = A.shape[0]."""
+    nk, M = A.shape
+    dev = A.device
+    k = k0 + torch.arange(nk, device=dev)[:, None]
+    d = torch.cat((k + 1, D[:, 1:].long(), k + 1), 1)     # (nk, M + 1)
+    n_cols = max(0, min(nk, N - k0))
+    bits = torch.arange(GROUP, dtype=torch.int64, device=dev)
+    y = torch.zeros((nk, M), dtype=torch.int64, device=dev)
+    y[:n_cols] = ((ycols[:n_cols].long()[:, :, None] >> bits) & 1).reshape(
+        n_cols, ycols.shape[1] * GROUP)[:, :M]
+    check = (k < N).expand(nk, M)
+    i = torch.arange(M, device=dev).expand(nk, M)
+    di, di1 = d[:, :M], d[:, 1:]
+    stop = torch.zeros((nk, M), dtype=torch.bool, device=dev)
+    ends = []
+    for step, start, bound, first in ((-1, i - 1, di, di <= di1),
+                                      (1, i + 1, di1, di >= di1)):
+        j, live = start.clone(), first.clone()
+        while bool(live.any()):
+            # up: while d[j + 1] <= d[i]; down: while d[j] <= d[i + 1]
+            live &= d.gather(1, (j + (step < 0)).clamp(0, M)) <= bound
+            hit = live & check & (y.gather(1, j.clamp(0, M - 1)) == y)
+            stop |= hit
+            live &= ~hit
+            j = torch.where(live, j + step, j)
+        ends.append(j)
+    lo = torch.where(di <= di1, ends[0] + 1, i)
+    hi = torch.where(di >= di1, ends[1], i + 1)
+    lo = torch.where(stop, i, lo)
+    hi = torch.where(stop, i + 1, hi)
+    return lo, hi, di, di1
+
+
+def max_within_count_plain(A, D, ycols, k0: int, N: int, counts):
+    """Plain twin of :func:`max_within_count`."""
+    lo, hi, _, _ = _extents(A, D, ycols, k0, N)
+    counts.t().scatter_(1, A.long(), (hi - lo - 1).to(counts.dtype))
+    return counts
+
+
+def max_within_fill_plain(A, D, ycols, k0: int, N: int, counts, base, sj,
+                          ss, se):
+    """Plain twin of :func:`max_within_fill`."""
+    nk, M = A.shape
+    dev = A.device
+    lo, hi, di, di1 = (t.reshape(-1) for t in _extents(A, D, ycols, k0, N))
+    c = hi - lo - 1
+    rec = A.reshape(-1).long()
+    r = torch.arange(nk * M, device=dev) // M
+    i = torch.arange(nk * M, device=dev) % M
+    first = base[rec] + counts.t().gather(1, A.long()).reshape(-1).long() - c
+    total = int(c.sum())
+    at = torch.repeat_interleave(torch.arange(nk * M, device=dev), c,
+                                 output_size=total)
+    t = torch.arange(total, device=dev) - (torch.cumsum(c, 0) - c)[at]
+    nup = (i - lo)[at]
+    up = t < nup
+    j = torch.where(up, lo[at] + t, i[at] + 1 + t - nup)
+    dst = first[at] + t
+    sj[dst] = A.reshape(-1)[r[at] * M + j]
+    ss[dst] = torch.where(up, di[at], di1[at]).to(ss.dtype)
+    se[dst] = (k0 + r[at]).to(se.dtype)
+    return sj, ss, se
+
+
+def max_within_count(A, D, ycols, k0: int, N: int, counts):
+    """The set-maximal within-panel matches' counting pass (kernel K9
+    ``k9_max_within``) over sites k0 .. k0 + nk - 1 of a panel of M
+    haplotypes and N sites, nk = A.shape[0] <= N + 1 - k0 (site N is the
+    flush, with no allele): A, D (nk, M) int32 the prefix and divergence
+    arrays before each site (:func:`partition.ad_table`'s rows; D's column
+    0 is not read), ycols the packed sorted columns of the sites below N
+    from k0 on. Fills counts (M, nk) int32: [a, r] the reports of recipient
+    a at site k0 + r, as max_within_impl of the host C runtime makes them.
+    On CPU tensors the plain twin."""
+    if A.device.type == "cpu":
+        return max_within_count_plain(A, D, ycols, k0, N, counts)
+    return _k9(A, D, ycols, k0, N, counts)
+
+
+def max_within_fill(A, D, ycols, k0: int, N: int, counts, base, sj, ss,
+                    se):
+    """K9's filling pass over the sites of :func:`max_within_count`, with
+    counts turned into their inclusive sums along each recipient's row, and
+    base (M,) int64 each recipient's first slot: writes each
+    report's donor haplotype, start and end (sj, ss, se int32) in the host's
+    order, a recipient's by site, within a site the rows above it and then
+    those below, each ascending. On CPU tensors the plain twin."""
+    if A.device.type == "cpu":
+        return max_within_fill_plain(A, D, ycols, k0, N, counts, base, sj,
+                                     ss, se)
+    return _k9(A, D, ycols, k0, N, counts, base, sj, ss, se)
+
+
+def _k9(A, D, ycols, k0, N, counts, base=None, sj=None, ss=None, se=None):
+    dev = kernels.cuda_tensors(A, D, ycols, counts)
+    nk, M = A.shape
+    if D.shape != A.shape or counts.shape != (M, nk):
+        raise ValueError("max_within: A, D and counts differ in shape")
+    if base is not None:
+        kernels.typed_cuda_tensors((base, torch.int64), (sj, torch.int32),
+                                   (ss, torch.int32), (se, torch.int32))
+        if not sj.numel():
+            return sj, ss, se
+    kernels.launch("k9_max_within", dev.index, A.data_ptr(), D.data_ptr(),
+                   ycols.data_ptr(), ycols.shape[1], M, nk, int(k0), int(N),
+                   counts.data_ptr(),
+                   *((None,) * 4 if base is None else
+                     (base.data_ptr(), sj.data_ptr(), ss.data_ptr(),
+                      se.data_ptr())), kernels.stream(dev))
+    return counts if base is None else (sj, ss, se)
+
+
+def collect_bytes(M: int, N: int, nz: int) -> int:
+    """Device memory :func:`collect_matches` takes at most besides the
+    segments: the pack3 bytes, the columns, and the larger of the decode's
+    row counts and first rows (12 B a byte) and a chunk's tables (A, D and
+    the counts of at most COLLECT_BYTES // (12 M) sites, A and D one row
+    more). At 5,008 haplotypes it stays below :func:`device_bytes` from
+    16,384 sites to the dense route's 500,000, so K6's scratch still sets
+    the route's peak and its limit of sites."""
+    chunk = min(N + 1, _chunk_sites(M))
+    return (nz + 4 * N * -(-M // GROUP)
+            + max(12 * nz, 4 * M * (3 * chunk + 2)))
+
+
+def _chunk_sites(M: int) -> int:
+    return max(1, COLLECT_BYTES // (12 * M))
+
+
+def collect_matches(yz: bytes, M: int, N: int, a0, device):
+    """The set-maximal within-panel matches of a panel, collected on
+    ``device`` (a CUDA card; a CPU device runs the kernels' plain twins):
+    (sj, ss, se int32, seg_off int64 (M + 1,)) tensors there, the host C
+    runtime's ``max_within_bucketed`` exactly, in its order. yz: the
+    panel's pack3 bytes (M >= 2 haplotypes, N sites), a0 its start prefix
+    array (the panel's ``aFstart``; None for the identity). Raises, naming
+    -paintSparse, where :func:`collect_bytes` do not fit on the card.
+
+    The bytes and a0 are uploaded (span ``ops.paint.collect.upload``) and
+    decoded into packed sorted columns by ``k1_decode_columns``
+    (``.decode``). Then, in chunks of sites whose tables fit COLLECT_BYTES
+    (one at 5,008 haplotypes up to 35,000 sites), (a, d) carried from one to
+    the next: K2's ``k2_partition_ad_table`` writes every site's (a, d)
+    (``.trajectory``), K9's counting pass each (recipient, site)'s reports,
+    summed over the sites along each recipient's row in place (``.count``),
+    and K9's filling pass the reports in (recipient, site) order
+    (``.fill``; with several chunks, one stable placement by recipient
+    follows). Nothing is kept on the device after the call but the
+    segments."""
+    dev = torch.device(device)
+    i32 = torch.int32
+    check_room(collect_bytes(M, N, len(yz)), dev, "match collection")
+    if a0 is None:
+        a0 = np.arange(M, dtype=np.int32)
+    with tracing.span("ops.paint.collect.upload"):
+        z = torch.frombuffer(bytearray(yz), dtype=torch.uint8) if yz else (
+            torch.empty(0, dtype=torch.uint8))
+        z = z.to(dev)
+        a = torch.from_numpy(np.ascontiguousarray(a0, np.int32)).to(dev)
+    with tracing.span("ops.paint.collect.decode"):
+        ycols = build.decode_columns(z, N, M)
+        del z
+    chunk = min(N + 1, _chunk_sites(M))
+    A = torch.empty((chunk + 1, M), dtype=i32, device=dev)
+    D = torch.empty_like(A)
+    A[0], D[0] = a, 0
+    counts = torch.empty(chunk * M, dtype=i32, device=dev)
+    parts = []
+    for k0 in range(0, N + 1, chunk):
+        nk = min(chunk, N + 1 - k0)     # sites of reports, N the flush
+        ns = min(nk, N - k0)            # sites of the trajectory
+        if k0:
+            A[0], D[0] = A[chunk], D[chunk]
+        with tracing.span("ops.paint.collect.trajectory"):
+            partition.ad_table(ycols[k0:k0 + ns], A[:ns + 1], D[:ns + 1], k0)
+        with tracing.span("ops.paint.collect.count"):
+            cnt = counts[:M * nk].view(M, nk)
+            max_within_count(A[:nk], D[:nk], ycols[k0:], k0, N, cnt)
+            tot = cnt.sum(1, dtype=torch.int64)
+            cnt.cumsum_(1)
+            off = torch.zeros(M + 1, dtype=torch.int64, device=dev)
+            torch.cumsum(tot, 0, out=off[1:])
+            n, top = torch.stack((off[-1], tot.max())).tolist()
+            if top >= 1 << 31:
+                raise ValueError(f"max_within: {top} matches of one "
+                                 "haplotype in a chunk of sites")
+        with tracing.span("ops.paint.collect.fill"):
+            seg = [torch.empty(n, dtype=i32, device=dev) for _ in range(3)]
+            max_within_fill(A[:nk], D[:nk], ycols[k0:], k0, N, cnt, off[:-1],
+                            *seg)
+        parts.append((tot, off, *seg))
+    if len(parts) == 1:
+        tot, off, sj, ss, se = parts[0]
+        return sj, ss, se, off
+    with tracing.span("ops.paint.collect.fill"):
+        return _placed(parts, M)
+
+
+def _placed(parts, M: int):
+    """The chunks' segments, each in (recipient, site) order, placed by
+    recipient, the chunks in order: (sj, ss, se, seg_off)."""
+    dev = parts[0][0].device
+    tots = torch.stack([p[0] for p in parts])            # (chunks, M)
+    seg_off = torch.zeros(M + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(tots.sum(0), 0, out=seg_off[1:])
+    prior = torch.cumsum(tots, 0) - tots
+    out = [torch.empty(int(seg_off[-1]), dtype=torch.int32, device=dev)
+           for _ in range(3)]
+    recs = torch.arange(M, device=dev)
+    for c, (tot, off, *seg) in enumerate(parts):
+        n = seg[0].numel()
+        rec = torch.repeat_interleave(recs, tot, output_size=n)
+        dst = (torch.arange(n, device=dev) - off[rec] + seg_off[rec]
+               + prior[c, rec])
+        for o, x in zip(out, seg):
+            o[dst] = x
+    return (*out, seg_off)
+
+
 def upload_segments(sj, ss, se, seg_off, device):
     """The host's segment columns as tensors on ``device``."""
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -338,25 +571,35 @@ def download_tables(tables):
     return tuple(t.cpu().numpy() for t in tables)
 
 
+def check_room(need: int, dev: torch.device, what: str) -> None:
+    """Raise, naming -paintSparse, where ``need`` bytes are more than the
+    card's free memory and what torch's cache holds unused."""
+    if dev.type != "cuda":
+        return
+    free = (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
+            - torch.cuda.memory_allocated(dev))
+    if need > free:
+        raise ValueError(f"-paint's {what} need {need} bytes of device "
+                         f"memory and {free} are free: use -paintSparse, "
+                         "or the host (PBWT_TORCH_DEVICE=0)")
+
+
 def paint_tables_device(sj, ss, se, seg_off, M: int, N: int, ploidy: int,
                         cpr: int, device=None):
-    """paint_accumulate on ``device`` from the host's segment columns
-    (``algos/paint._collect_match_arrays``); the five tables as numpy
+    """paint_accumulate on ``device`` from the segment columns: the host's
+    (``algos/paint._collect_match_arrays``), uploaded first, or tensors
+    already there (:func:`collect_matches`); the five tables as numpy
     arrays. Raises, naming -paintSparse, when the dense tables do not fit
     on the card."""
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        need = device_bytes(M, N, ploidy, len(sj))
-        # the driver's free memory and what torch's cache holds unused
-        free = (torch.cuda.mem_get_info(dev)[0]
-                + torch.cuda.memory_reserved(dev)
-                - torch.cuda.memory_allocated(dev))
-        if need > free:
-            raise ValueError(f"-paint's tables need {need} bytes of device "
-                             f"memory and {free} are free: use -paintSparse, "
-                             "or the host (PBWT_TORCH_DEVICE=0)")
-    with tracing.span("ops.paint.upload"):
-        cols = upload_segments(sj, ss, se, seg_off, dev)
+    there = isinstance(sj, torch.Tensor)
+    need = device_bytes(M, N, ploidy, len(sj))
+    check_room(need - segment_bytes(M, len(sj)) * there, dev, "tables")
+    if there:
+        cols = tuple(t.to(dev) for t in (seg_off, sj, ss, se))
+    else:
+        with tracing.span("ops.paint.upload"):
+            cols = upload_segments(sj, ss, se, seg_off, dev)
     tables = paint_accumulate(*cols, M, N, ploidy, cpr)
     with tracing.span("ops.paint.download"):        # waits for K6
         return download_tables(tables)

@@ -6,8 +6,9 @@ flattened); any ``Mp`` is accepted. :func:`group_partition` and
 :func:`partition_ad_step` are the counterparts of the JAX functions (one
 group, one site); :func:`group_scan` and :func:`ad_trajectory` run a whole
 construction scan and a whole trajectory, and :func:`ad_columns` the
-divergence-carrying partition of packed sorted columns, each one persistent
-launch on the card (``csrc/partition.cu``). Each wrapper runs its CUDA
+divergence-carrying partition of packed sorted columns (:func:`ad_table`
+the same, kept a row a site), each one persistent launch on the card
+(``csrc/partition.cu``). Each wrapper runs its CUDA
 kernel on CUDA tensors and its plain-torch twin on CPU tensors; it never
 falls back from one to the other. The kernels choose their own launch
 shape (rows a thread, blocks) from the row count and the card.
@@ -270,6 +271,50 @@ def ad_columns(ycols: torch.Tensor, a0: torch.Tensor, d0: torch.Tensor,
     _raise_on_error(scratch, "k2_partition_ad_columns")
     last = (Ns - 1) % 2
     return a_pp[last], d_pp[last]
+
+
+def ad_table_plain(ycols: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                   first_site: int = 0):
+    """Plain twin of :func:`ad_table`: :func:`partition_ad_step_plain` site
+    after site on each unpacked column, each site's arrays kept as a row."""
+    n = A.shape[1]
+    bits = torch.arange(GROUP, dtype=torch.int64, device=ycols.device)
+    for r in range(ycols.shape[0]):
+        key = ((ycols[r].long()[:, None] >> bits) & 1).reshape(-1)
+        A[r + 1], D[r + 1] = partition_ad_step_plain(
+            A[r], D[r], key[:n].to(torch.int32), 0, first_site + r)[:2]
+    return A, D
+
+
+def ad_table(ycols: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+             first_site: int = 0):
+    """The divergence-carrying partition of sites given as their packed
+    sorted columns, every site's arrays written as a row of two tables
+    (kernel K2's entry ``k2_partition_ad_table``, one launch for all sites).
+
+    ycols: (Ns, ceil(n/32)) int32 as :func:`ad_columns` takes them; A, D:
+    (at least Ns + 1, n) int32 tables whose row 0 holds the prefix and
+    divergence arrays entering site 0, the global site first_site. Row r + 1
+    is written with the arrays after site r, so row r holds them before
+    global site first_site + r (D without the d[n] sentinel, its row r's
+    entry 0 first_site + r + 1 from r = 1). Returns (A, D)."""
+    Ns, rw = ycols.shape
+    n = A.shape[1]
+    if (D.shape[1] != n or rw != (n + 31) // 32 or A.shape[0] <= Ns
+            or D.shape[0] <= Ns):
+        raise ValueError(f"ad_table: {Ns} sites of {rw} words, tables "
+                         f"{tuple(A.shape)} and {tuple(D.shape)}")
+    if ycols.device.type == "cpu":
+        return ad_table_plain(ycols, A, D, first_site)
+    dev = kernels.cuda_tensors(ycols, A, D)
+    if n == 0 or Ns == 0:
+        return A, D
+    scratch = _scratch(n, dev)
+    kernels.launch("k2_partition_ad_table", dev.index, ycols.data_ptr(), rw,
+                   A.data_ptr(), D.data_ptr(), n, Ns, int(first_site),
+                   scratch.data_ptr(), 0, 0, kernels.stream(dev))
+    _raise_on_error(scratch, "k2_partition_ad_table")
+    return A, D
 
 
 def _trajectory_tables(W: torch.Tensor):
